@@ -1,0 +1,104 @@
+"""Composable experiment scenarios: policy x arrivals x fleet x config.
+
+The counterpart of ``repro/core/scenario.py``: the entry point over the
+simulator::
+
+    from repro_torch.core import Scenario
+
+    # the paper's Fig. 5 experiment: real LeNet-5 training on the card
+    r = Scenario(policy="online", ml="lenet", n_users=25, horizon_s=3600,
+                 V=5.0, app_arrival_p=0.004).run()
+
+    # the same on the CPU
+    r = Scenario(policy="online", ml="lenet", n_users=25, horizon_s=3600,
+                 V=5.0, app_arrival_p=0.004,
+                 ml_kwargs=dict(device="cpu")).run()
+
+Strings resolve through the registries; objects pass through as-is.
+Batched sweeps (``run_sweep``, ``Scenario.grid``) are still to port
+(ROADMAP Queue 1 item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+from .arrivals import ArrivalProcess, resolve_arrival_or_default
+from .fleet import Fleet, resolve_fleet
+from .policies import Policy, resolve_policy
+from .realml import BatchedMLBackend, make_backend
+from .simulator import FederatedSim, SimConfig, SimResult
+
+
+class Scenario:
+    """One composed experiment: resolved policy/arrivals/fleet + SimConfig.
+
+    ``ml`` couples the schedule to real training: a ``core.realml``
+    backend name (``"lenet"``) or ``BatchedMLBackend`` instance — setting
+    it forces ``ml_mode="real"``, and ``build()`` constructs a fresh
+    backend per run (seeded from ``SimConfig.seed``, training eta/beta
+    defaulting to the config's, the config's aggregation rule and kernel
+    mode). ``ml_kwargs`` are extra backend constructor arguments
+    (``n_train``, ``batch_size``, ``device``, ...). Remaining keyword
+    arguments are ``SimConfig`` fields, or pass a prebuilt ``config=``.
+    """
+
+    def __init__(self, policy: Union[str, Policy, None] = None,
+                 arrivals: Union[str, ArrivalProcess, None] = None,
+                 fleet: Union[str, Fleet, None] = None,
+                 name: Optional[str] = None,
+                 config: Optional[SimConfig] = None,
+                 ml: Union[str, BatchedMLBackend, None] = None,
+                 ml_kwargs: Optional[dict] = None,
+                 **sim_kwargs):
+        if config is not None:
+            if sim_kwargs:
+                raise ValueError(
+                    f"pass either config= or SimConfig kwargs, not both "
+                    f"(got {sorted(sim_kwargs)})")
+            if policy is not None and policy is not config.policy:
+                config = dataclasses.replace(config, policy=policy)
+            self.config = config
+        else:
+            self.config = SimConfig(
+                policy="online" if policy is None else policy, **sim_kwargs)
+        if ml is not None and self.config.ml_mode != "real":
+            self.config = dataclasses.replace(self.config, ml_mode="real")
+        if ml is None and ml_kwargs:
+            raise ValueError("ml_kwargs without ml= has no effect; "
+                             "pass ml='lenet' (or a backend instance)")
+        self.ml = ml
+        self.ml_kwargs = dict(ml_kwargs or {})
+        self.policy = resolve_policy(self.config.policy)
+        self.arrivals = resolve_arrival_or_default(
+            arrivals, self.config.app_arrival_p)
+        self.fleet = None if fleet is None else resolve_fleet(fleet)
+        self.name = name if name is not None else self.policy.name
+
+    def build(self, ml_backend: Optional[BatchedMLBackend] = None
+              ) -> FederatedSim:
+        """Construct the (seeded) simulator without running it."""
+        backend = ml_backend
+        if backend is None and self.ml is not None:
+            kw = dict(self.ml_kwargs)
+            kw.setdefault("eta", self.config.eta)
+            kw.setdefault("beta", self.config.beta)
+            kw.setdefault("seed", self.config.seed)
+            kw.setdefault("aggregation", self.config.aggregation)
+            kw.setdefault("kernel", self.config.kernel)
+            backend = make_backend(self.ml, self.config.n_users, **kw)
+        return FederatedSim(self.config, ml_backend=backend,
+                            arrivals=self.arrivals, fleet=self.fleet)
+
+    def run(self, ml_backend: Optional[BatchedMLBackend] = None
+            ) -> SimResult:
+        return self.build(ml_backend=ml_backend).run()
+
+    def __repr__(self):
+        flt = self.fleet.name if self.fleet is not None else "paper"
+        ml = "" if self.ml is None else \
+            f", ml={getattr(self.ml, 'name', self.ml)!r}"
+        return (f"Scenario({self.name!r}: policy={self.policy.name!r}, "
+                f"arrivals={self.arrivals.name!r}, fleet={flt!r}, "
+                f"n_users={self.config.n_users}, "
+                f"horizon_s={self.config.horizon_s}{ml})")

@@ -1,0 +1,4 @@
+from .kernel import fused_apply_triton
+from .ops import (KERNEL_MODES, check_kernel_mode, fused_apply_flat,
+                  fused_weighted_apply)
+from .ref import fused_apply_flat_ref

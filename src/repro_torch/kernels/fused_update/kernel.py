@@ -1,0 +1,101 @@
+"""Triton kernel for Hopper: the server push apply with its sum of squares (K1).
+
+Replaces ``repro/kernels/fused_update/kernel.py::_apply_kernel`` (launched
+by ``fused_apply_2d``), the TPU kernel of the aggregation hot path:
+
+    mixed = w * new + (1 - w) * cur              (read new, cur; write mixed)
+    s     = (cur - mixed) * inv_eta
+    v'    = beta * v + (1 - beta) * s            (read v; write v')
+    Sum(v'^2)                                    (one partial per program)
+
+What bounds it on an H100: memory. Each element reads 3 f32 and writes 2
+f32 (20 bytes) for about 8 flops, so the least time is 20 bytes per
+element at 3.35 TB/s (HBM3); the flops are three orders of magnitude
+below the f32 peak. The design does only what keeps it at that bound:
+
+- one pass, 1-D grid over ``BLOCK`` elements; the tail block masks its
+  loads (masked lanes read 0, so they mix 0 with 0 and add 0 to the sum)
+  instead of the TPU version's zero padding to a (rows, 128) grid;
+- ``w``, ``inv_eta`` and ``beta`` are runtime f32 scalars, so one compile
+  serves every aggregation rule and every push;
+- each program writes its block's partial ``Sum(v'^2)`` and the wrapper
+  sums the partials in a second, deterministic stage (no atomics), so the
+  momentum norm repeats bit for bit from run to run;
+- the launch sets ``enable_fp_fusion=False``: ``s = (cur - mixed) * inv_eta``
+  cancels, and an FMA-contracted ``mixed`` would move ``v'`` past the
+  reference's bound.
+
+``triton`` is imported inside the launching function, never at module
+import, so the CPU-only test environment imports this module freely.
+"""
+from __future__ import annotations
+
+import functools
+import os
+import pathlib
+
+import torch
+
+BLOCK = 1024            # elements per program: 8 per thread at 4 warps
+NUM_WARPS = 4
+BYTES_PER_ELEMENT = 20  # 3 f32 reads + 2 f32 writes
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
+
+# kernel builds land inside the checkout, in a directory .gitignore lists
+_BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / ".kernel_build"
+
+
+@functools.cache
+def _apply_kernel():
+    """Build (once per process) the jitted Triton kernel."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def fused_apply_kernel(cur_ptr, v_ptr, new_ptr, mixed_ptr, v_out_ptr,
+                           partial_ptr, n, w, inv_eta, beta,
+                           BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        cur = tl.load(cur_ptr + offs, mask=m, other=0.0)
+        v = tl.load(v_ptr + offs, mask=m, other=0.0)
+        new = tl.load(new_ptr + offs, mask=m, other=0.0)
+        mixed = w * new + (1.0 - w) * cur
+        s = (cur - mixed) * inv_eta
+        v_new = beta * v + (1.0 - beta) * s
+        tl.store(mixed_ptr + offs, mixed, mask=m)
+        tl.store(v_out_ptr + offs, v_new, mask=m)
+        tl.store(partial_ptr + pid, tl.sum(v_new * v_new, axis=0))
+
+    return fused_apply_kernel
+
+
+def fused_apply_triton(cur, v, new, w, inv_eta, beta):
+    """Launch K1 on flat, contiguous, same-size f32 CUDA tensors.
+
+    Returns (mixed, v', sumsq) with sumsq a 0-d f32 tensor; allocates its
+    outputs (nothing is updated in place). The caller has short-circuited
+    empty inputs."""
+    for name, t in (("cur", cur), ("v", v), ("new", new)):
+        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 1 \
+                or not t.is_contiguous() or t.numel() != cur.numel():
+            raise ValueError(
+                f"fused_apply_triton: {name} must be a flat contiguous f32 "
+                f"CUDA tensor of {cur.numel()} elements, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    n = cur.numel()
+    nblk = -(-n // BLOCK)
+    mixed = torch.empty_like(cur)
+    v_out = torch.empty_like(v)
+    partials = torch.empty(nblk, dtype=torch.float32, device=cur.device)
+    _apply_kernel()[(nblk,)](cur, v, new, mixed, v_out, partials, n,
+                             float(w), float(inv_eta), float(beta),
+                             BLOCK=BLOCK, num_warps=NUM_WARPS,
+                             enable_fp_fusion=False)
+    fused_apply_triton.launches += 1
+    return mixed, v_out, torch.sum(partials)
+
+
+fused_apply_triton.launches = 0     # K1 launches since the last reset
