@@ -1,7 +1,11 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the K1 Triton
-kernel from this checkout, holds it against its plain version, drives the
-paper's main path (online-scheduled async LeNet-5 training) on the card,
-and checks the result against the immediate baseline and a CPU run.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the K1 and K2
+Triton kernels from this checkout and holds each against its plain
+version; drives the paper's main path (online-scheduled async LeNet-5
+training) on the card and checks it against the immediate baseline and a
+CPU run; then drives the async federated LM trainer at Qwen3-0.6B's full
+width (596,049,920 parameters, K2 on every island step, K1 on every push),
+holds one full-width train step's K2 epilogue against the plain version
+and profiles a few steps.
 
     python3 chip_smoke.py
 
@@ -14,6 +18,7 @@ the line before it the ``{"kernels": [...]}`` record.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -34,6 +39,13 @@ K1_SIZES = (0, 1, 1029, 62006, 2 ** 24 + 17)
 K1_WEIGHTS = (1.0, 0.6, 0.05)
 K1_BETA_ETA = ((0.9, 0.01), (0.0, 0.5), (0.99, 1e-4))
 LENET_N = 62006
+# Qwen3-0.6B at full width (configs/qwen3_0_6b.py), and its smoke config
+QWEN_N = 596_049_920
+K2_SIZES = (0, 1, 1029, 82304, QWEN_N, 2 ** 24 + 17)
+K2_ETA_BETA = ((0.01, 0.9), (0.05, 0.9), (0.1, 0.0))
+# the LM trainer's defaults (4 islands, batch 8, seq 64, 4 local steps),
+# 120 scheduler slots with an evaluation every 60
+LM_RUN = dict(slots=120, eval_every=60, app_arrival_p=0.05)
 
 
 def card_line() -> str:
@@ -53,6 +65,23 @@ def k1_inputs(n, seed, device):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
             .to(device) for _ in range(3)]
+
+
+def dev_inputs(n, seed):
+    """Three f32 standard-normal vectors drawn on the card (host numpy is
+    too slow at the LM's 596M elements)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(n, generator=gen, device="cuda") for _ in range(3)]
+
+
+def max_violation(a, b, rtol, atol):
+    """On the card: (max |a - b|, whether every |a - b| <= atol +
+    rtol * |b|), numpy's allclose rule."""
+    if a.numel() == 0:
+        return 0.0, True
+    diff = (a - b).abs()
+    ok = bool(torch.all(diff <= atol + rtol * b.abs()))
+    return float(diff.max()), ok
 
 
 def time_ms(fn, iters):
@@ -98,9 +127,10 @@ def phase_k1(fused_apply_flat, bound_ms):
         print(f"K1 n={n}: {len(K1_WEIGHTS) * len(K1_BETA_ETA)} cases "
               f"match the plain version", flush=True)
     times = {}
-    for n in (LENET_N, 2 ** 24 + 17):
-        cur, v, new = k1_inputs(n, 1, "cuda")
-        iters = 2000 if n == LENET_N else 100
+    for n in (LENET_N, 2 ** 24 + 17, QWEN_N):
+        cur, v, new = (k1_inputs(n, 1, "cuda") if n < QWEN_N
+                       else dev_inputs(n, 1))
+        iters = {LENET_N: 2000, QWEN_N: 20}.get(n, 100)
         ms = time_ms(lambda: fused_apply_flat(cur, v, new, 1.0, 100.0, 0.9,
                                               kernel="triton"), iters)
         plain = time_ms(lambda: fused_apply_flat(cur, v, new, 1.0, 100.0,
@@ -110,6 +140,68 @@ def phase_k1(fused_apply_flat, bound_ms):
         print(f"K1 n={n}: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
               f"bound {bound_ms(n):.6f} ms (20 B/element at 3.35 TB/s)",
               flush=True)
+        del cur, v, new
+    torch.cuda.empty_cache()
+    return max_err, times
+
+
+def phase_k2(fused_update_flat, bound_ms):
+    """K2 (Triton) against its plain version on the same CUDA tensors, at
+    the reference's bounds (tests/test_kernels.py): theta' and v' at rtol
+    1e-6 / atol 1e-6, Sum(v'^2) at rtol 1e-5. Then times at the LM's full
+    width and at 2^24+17: the kernel, the plain version, the bound, and
+    for scale torch's fused SGD step with momentum followed by a vector
+    norm (two calls; no single PyTorch call computes K2's function)."""
+    max_err = 0.0
+    for n in K2_SIZES:
+        theta, v, g = dev_inputs(n, n)
+        for eta, beta in K2_ETA_BETA:
+            out = fused_update_flat(theta, v, g, eta, beta, kernel="triton")
+            ref = fused_update_flat(theta, v, g, eta, beta,
+                                    kernel="reference")
+            for name, a, b in zip(("theta'", "v'"), out[:2], ref[:2]):
+                assert n == 0 or a.data_ptr() not in (
+                    theta.data_ptr(), v.data_ptr(), g.data_ptr())
+                err, ok = max_violation(a, b, 1e-6, 1e-6)
+                assert ok, (n, eta, beta, name, err)
+                max_err = max(max_err, err)
+            np.testing.assert_allclose(float(out[2]), float(ref[2]),
+                                       rtol=1e-5, atol=1e-10)
+            del out, ref
+        print(f"K2 n={n}: {len(K2_ETA_BETA)} cases match the plain version "
+              f"(rtol 1e-6, atol 1e-6; sum of squares rtol 1e-5)",
+              flush=True)
+        del theta, v, g
+        torch.cuda.empty_cache()
+    times = {}
+    for n in (QWEN_N, 2 ** 24 + 17):
+        theta, v, g = dev_inputs(n, 1)
+        iters = 20 if n == QWEN_N else 100
+        ms = time_ms(lambda: fused_update_flat(theta, v, g, 0.05, 0.9,
+                                               kernel="triton"), iters)
+        plain = time_ms(lambda: fused_update_flat(theta, v, g, 0.05, 0.9,
+                                                  kernel="reference"), iters)
+        sgd_ms = None
+        if "fused" in inspect.signature(torch.optim.SGD).parameters:
+            p = torch.nn.Parameter(theta.clone())
+            p.grad = g
+            opt = torch.optim.SGD([p], lr=0.05, momentum=0.9, dampening=0.9,
+                                  fused=True)
+
+            def sgd():
+                opt.step()
+                torch.linalg.vector_norm(opt.state[p]["momentum_buffer"])
+
+            sgd_ms = time_ms(sgd, iters)
+            del p, opt
+        times[n] = (ms, plain, bound_ms(n), sgd_ms)
+        print(f"K2 n={n}: kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
+              f"{bound_ms(n):.6f} ms (20 B/element at 3.35 TB/s), torch "
+              f"SGD(fused=True).step + vector_norm (two calls) "
+              f"{sgd_ms if sgd_ms is None else f'{sgd_ms:.6f}'} ms",
+              flush=True)
+        del theta, v, g
+        torch.cuda.empty_cache()
     return max_err, times
 
 
@@ -189,6 +281,134 @@ def profile_main(Scenario, horizon_s):
               flush=True)
 
 
+def run_lm(train, AsyncParameterServer, k1, k2):
+    """The LM path on the card: the async federated trainer at Qwen3-0.6B's
+    full width. Counts K1/K2 launches over exactly this run, the pushes
+    and local epochs (with their host seconds: a push's ``float`` of the
+    new momentum norm is the run's per-push host sync, and it waits for
+    the island's queued epoch), the wall time and the peak memory."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-0.6b")
+    assert cfg.param_count() == QWEN_N, cfg.param_count()
+    icfg = train.IslandConfig(**LM_RUN)
+    stats = {}
+    originals = {(AsyncParameterServer, "push"): AsyncParameterServer.push,
+                 (train.Island, "local_epoch"): train.Island.local_epoch}
+    for obj, name in originals:
+        _time_calls(obj, name, stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    out = train.run(cfg, icfg, device="cuda",
+                    log=lambda m: print(f"LM {m}", flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (k1.launches, k2.launches)
+    for (obj, name), fn in originals.items():
+        setattr(obj, name, fn)
+    peak = torch.cuda.max_memory_allocated()
+    pushes, push_s = stats["push"]
+    epochs, epoch_s = stats["local_epoch"]
+    losses = [l for _, l, _ in out["history"]] + [out["final_loss"]]
+    steps = launches[1]
+    train_s = push_s + epoch_s
+    print(f"LM qwen3-0.6b ({cfg.param_count()} parameters, {icfg.n_islands} "
+          f"islands, batch {icfg.batch}, seq {icfg.seq}, {icfg.local_steps} "
+          f"local steps, {icfg.slots} slots): updates {out['updates']}, "
+          f"pushes {pushes}, local epochs {epochs}, steps {steps}, K1 "
+          f"launches {launches[0]}, K2 launches {launches[1]}; eval loss "
+          f"first {losses[0]!r} last {losses[-1]!r}; energy "
+          f"{out['energy_j']!r} J; wall {wall!r} s (setup included); "
+          f"host seconds in local_epoch {epoch_s!r} and push {push_s!r} "
+          f"({pushes} host syncs, one per push); {steps / train_s!r} "
+          f"steps/s and {steps * icfg.batch * icfg.seq / train_s!r} tokens/s "
+          f"over those seconds, {steps / wall!r} steps/s over the wall; peak "
+          f"memory {peak / 2 ** 30!r} GiB", flush=True)
+    assert out["updates"] > 0, "the LM trainer made no update"
+    assert out["updates"] == pushes, (out["updates"], pushes)
+    assert all(np.isfinite(l) for l in losses), losses
+    assert launches[0] == pushes, (launches[0], pushes)
+    assert launches[1] == icfg.local_steps * epochs, (launches[1], epochs)
+    return out["params"], cfg, launches
+
+
+def lm_batch(cfg, seed):
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    stream = synthetic_tokens(20_000, cfg.vocab_size, seed=seed)
+    batch = next(token_batches(stream, 8, 64, 1, seed=seed))
+    return {k: torch.from_numpy(x).cuda() for k, x in batch.items()}
+
+
+def phase_lm_step(params, cfg, make_train_step, k2):
+    """One full-width train step on the same inputs with kernel="reference"
+    and kernel="auto": theta', v' at K2's bound (rtol 1e-6 / atol 1e-6),
+    the gap at rtol 1e-5 (the sum-of-squares bound)."""
+    from repro_torch.kernels.fused_update.ops import tree_leaves, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    v = tree_map(lambda p: 0.01 * torch.randn(p.shape, generator=gen,
+                                              device="cuda"), params)
+    batch = lm_batch(cfg, seed=11)
+    p_ref, v_ref, m_ref = make_train_step(cfg, eta=0.05, beta=0.9,
+                                          kernel="reference")(
+        params, v, batch, 3)
+    k2.launches = 0
+    p_k, v_k, m_k = make_train_step(cfg, eta=0.05, beta=0.9)(
+        params, v, batch, 3)
+    assert k2.launches == 1, k2.launches
+    max_err = 0.0
+    for a, b in zip(tree_leaves(p_k) + tree_leaves(v_k),
+                    tree_leaves(p_ref) + tree_leaves(v_ref)):
+        err, ok = max_violation(a, b, 1e-6, 1e-6)
+        assert ok, err
+        max_err = max(max_err, err)
+    np.testing.assert_allclose(float(m_k["gap"]), float(m_ref["gap"]),
+                               rtol=1e-5)
+    assert np.isfinite(float(m_k["loss"]))
+    print(f"LM step: theta', v' of {QWEN_N} parameters match the plain K2 "
+          f"at rtol 1e-6 / atol 1e-6 (max abs err {max_err!r}); gap "
+          f"{float(m_k['gap'])!r} vs {float(m_ref['gap'])!r}; loss "
+          f"{float(m_k['loss'])!r} vs {float(m_ref['loss'])!r}", flush=True)
+    return max_err
+
+
+def profile_lm_steps(params, cfg, make_train_step, n_steps=3):
+    """torch.profiler over a few full-width train steps (K2 on each):
+    device busy time against the wall, the kernels that take the most of
+    it, and the flatten/concat the tree wrappers pay per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.fused_update.ops import (flatten_concat,
+                                                      tree_map)
+    concat_ms = time_ms(lambda: flatten_concat(params), 5)
+    print(f"LM flatten+concat of one {QWEN_N}-parameter tree: "
+          f"{concat_ms:.6f} ms (the K2 and K1 tree wrappers do three per "
+          f"call)", flush=True)
+    step = make_train_step(cfg, eta=0.05, beta=0.9)
+    batch = lm_batch(cfg, seed=12)
+    v = tree_map(torch.zeros_like, params)
+    p, v, _ = step(params, v, batch, 1)         # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            p, v, _ = step(p, v, batch, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_s = sum(r[1] for r in rows) * 1e-6
+    print(f"LM profile: {n_steps} steps, wall {wall!r} s (profiled), "
+          f"{wall / n_steps * 1e3!r} ms/step, device busy {busy_s!r} s, "
+          f"idle share {1.0 - busy_s / wall!r}, device-side kernel launches "
+          f"{sum(r[2] for r in rows)}", flush=True)
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"LM profile:   {us * 1e-3:10.3f} ms  {count:6d}x  "
+              f"{key[:90]}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -196,14 +416,20 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.core import Scenario
+    t_start = time.perf_counter()
+    from repro_torch.core import AsyncParameterServer, Scenario
     from repro_torch.kernels.fused_update import (fused_apply_flat,
-                                                  fused_apply_triton)
+                                                  fused_apply_triton,
+                                                  fused_update_flat,
+                                                  fused_update_triton)
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.kernels.fused_update.kernel import (BYTES_PER_ELEMENT,
                                                          HBM_BYTES_PER_S)
     import triton
 
     def bound_ms(n):    # 3 f32 reads + 2 f32 writes per element + sumsq
+        # (K1 and K2 alike)
         return (BYTES_PER_ELEMENT * n + 4) / HBM_BYTES_PER_S * 1e3
 
     # ---- 1. environment --------------------------------------------------
@@ -221,22 +447,29 @@ def main() -> int:
     print(f"K1 phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 3. the main path on the card ------------------------------------
+    t = time.perf_counter()
     online, wall, launches = run_main(Scenario, "online", "cuda",
                                       fused_apply_triton)
     assert online.updates > 0, "the online policy made no update"
     assert launches == len(online.push_log) == online.updates, \
         (launches, len(online.push_log), online.updates)
+    print(f"main path phase: {time.perf_counter() - t:.1f} s", flush=True)
 
+    t = time.perf_counter()
     profile_main(Scenario, horizon_s=1200)
+    print(f"profile phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 4. the immediate baseline ----------------------------------------
+    t = time.perf_counter()
     immediate, _, imm_launches = run_main(Scenario, "immediate", "cuda",
                                           fused_apply_triton)
     assert imm_launches == immediate.updates > 0
     saving = 1.0 - online.energy_j / immediate.energy_j
     print(f"online vs immediate: energy saving {saving!r}", flush=True)
+    print(f"immediate phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 5. the same online run on the CPU --------------------------------
+    t = time.perf_counter()
     cpu, _, cpu_launches = run_main(Scenario, "online", "cpu",
                                     fused_apply_triton)
     assert cpu_launches == 0, "a CPU run launched the CUDA kernel"
@@ -253,10 +486,33 @@ def main() -> int:
     else:
         print(f"CPU run: mean_H {cpu.mean_H!r} / {online.mean_H!r} > 0, "
               "schedules may part ways; digest not compared", flush=True)
+    print(f"CPU phase: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # ---- 6. the kernels record -------------------------------------------
+    # ---- 6. K2 against its plain version ---------------------------------
+    t = time.perf_counter()
+    k2_err, k2_times = phase_k2(fused_update_flat, bound_ms)
+    print(f"K2 phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 7. the LM path on the card: Qwen3-0.6B at full width --------------
+    t = time.perf_counter()
+    params, cfg, lm_launches = run_lm(train, AsyncParameterServer,
+                                      fused_apply_triton, fused_update_triton)
+    print(f"LM run phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    step_err = phase_lm_step(params, cfg, make_train_step,
+                             fused_update_triton)
+    profile_lm_steps(params, cfg, make_train_step)
+    print(f"LM step phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 8. the kernels record ---------------------------------------------
     ms, plain_ms, b_ms = times[LENET_N]
+    k2_ms, k2_plain, k2_bound, _ = k2_times[QWEN_N]
+    print(f"K1 at the LM's {QWEN_N} parameters: kernel "
+          f"{times[QWEN_N][0]:.6f} ms, plain {times[QWEN_N][1]:.6f} ms, "
+          f"bound {times[QWEN_N][2]:.6f} ms; {lm_launches[0]} launches in "
+          f"the LM run", flush=True)
     print(f"card: {card}", flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "K1 fused_apply (server push apply + sum of squares)",
         "route": "triton",
@@ -267,6 +523,18 @@ def main() -> int:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "K2 fused_update (client momentum step + sum of squares)",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_update/kernel.py",
+        "replaces": "src/repro/kernels/fused_update/kernel.py:49",
+        "launches": lm_launches[1],
+        "max_abs_err": max(k2_err, step_err),
+        "ms": k2_ms,
+        "plain_ms": k2_plain,
+        "bound_ms": k2_bound,
         "bound_by": "bytes",
         "library_ms": None,
     }]}), flush=True)

@@ -3,8 +3,8 @@
 The JAX package ``repro`` stays the reference; this package mirrors its
 module names (``repro_torch/core/lyapunov.py`` <-> ``repro/core/lyapunov.py``)
 and imports neither ``jax`` nor anything of ``repro``: the numpy-only
-modules it needs (energy, fleet, arrivals, lyapunov, data/synthetic) are
-its own copies.
+and plain-Python modules it needs (energy, fleet, arrivals, lyapunov,
+data/synthetic, models/config, fault/monitor) are its own copies.
 
 Entry points place their tensors on ``device="cuda"`` unless the caller
 asks for the CPU, and raise when CUDA is asked for and absent. Kernels

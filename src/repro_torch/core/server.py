@@ -71,6 +71,11 @@ class AsyncParameterServer:
         self.in_flight.add(client_id)
         return self.params, self.lag_tracker.version
 
+    def lag_estimate(self, client_id) -> int:
+        """Alg. 2 line 4: server-side lag estimate = concurrent tasks."""
+        return max(len(self.in_flight)
+                   - (1 if client_id in self.in_flight else 0), 0)
+
     def push(self, client_id, new_params: Any) -> PushResult:
         lag = self.lag_tracker.on_push(client_id)
         self.in_flight.discard(client_id)

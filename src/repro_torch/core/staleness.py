@@ -70,3 +70,8 @@ class LagTracker:
         l = self.lag(client_id)
         self.version += 1
         return l
+
+    def estimate_lag_during(self, in_flight: int) -> int:
+        """Server-supplied lag estimate for Alg. 2 line 4: the number of
+        currently-running tasks expected to land within the client's window."""
+        return in_flight

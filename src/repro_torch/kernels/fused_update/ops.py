@@ -1,22 +1,25 @@
-"""Public wrappers of the server push apply: flat tensors and whole trees.
+"""Public wrappers of the client momentum step (K2) and the server push
+apply (K1): flat tensors and whole trees.
 
-``fused_apply_flat`` is the one dispatch point of K1. ``kernel`` picks the
-implementation from the device of the tensors it is given:
+``fused_update_flat`` is the one dispatch point of K2 and
+``fused_apply_flat`` that of K1. ``kernel`` picks the implementation from
+the device of the tensors it is given:
 
 - ``"auto"``: the Triton kernel for CUDA tensors, the plain version for
   CPU tensors (which only a caller that asked for the CPU has);
 - ``"triton"``: the Triton kernel; a CPU tensor raises;
 - ``"reference"``: the plain version on either device, an explicit choice
-  (``chip_smoke.py`` uses it to hold the kernel against it on the card).
+  (``chip_smoke.py`` uses it to hold the kernels against it on the card).
 
 There is no fallback: a CUDA tensor under ``auto``/``triton`` launches the
 kernel or raises.
 
-``fused_weighted_apply`` is the tree version (the counterpart of
-``repro.kernels.fused_update.ops.fused_weighted_apply_pallas``): flatten
-the leaves once, one K1 pass, split back. A flat tensor is a one-leaf
-tree, so a server that keeps its parameters in one flat buffer pays no
-flatten or concat at all.
+``fused_momentum_gap_update`` and ``fused_weighted_apply`` are the tree
+versions (the counterparts of ``repro.kernels.fused_update.ops``'s
+``fused_momentum_gap_update_pallas`` and ``fused_weighted_apply_pallas``):
+flatten the leaves once, one kernel pass, split back. A flat tensor is a
+one-leaf tree, so a caller that keeps its parameters in one flat buffer
+pays no flatten or concat at all.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ from typing import Any
 
 import torch
 
-from .kernel import fused_apply_triton
-from .ref import fused_apply_flat_ref
+from .kernel import fused_apply_triton, fused_update_triton
+from .ref import fused_apply_flat_ref, fused_update_flat_ref
 
 KERNEL_MODES = ("auto", "triton", "reference")
 
@@ -37,20 +40,46 @@ def check_kernel_mode(mode: str) -> str:
     return mode
 
 
+def _use_kernel(kernel: str, t) -> bool:
+    """Whether ``kernel`` launches the Triton kernel for tensor ``t``."""
+    check_kernel_mode(kernel)
+    if kernel == "reference" or (kernel == "auto" and not t.is_cuda):
+        return False
+    if not t.is_cuda:
+        raise ValueError("kernel='triton' needs CUDA tensors; got tensors "
+                         f"on {t.device}")
+    return True
+
+
+def _empty_result(a, b):
+    return (torch.empty_like(a, dtype=torch.float32),
+            torch.empty_like(b, dtype=torch.float32),
+            torch.zeros((), dtype=torch.float32, device=a.device))
+
+
+def fused_update_flat(theta, v, g, eta, beta, *, kernel="auto"):
+    """Client momentum step on flat f32 tensors of one size: Eq. 1 and the
+    sum of squares of the new momentum in one pass. Returns
+    (theta', v', sumsq), sumsq a 0-d f32 tensor on the inputs' device;
+    the outputs are new tensors (the inputs are left as they were)."""
+    if theta.numel() == 0:
+        check_kernel_mode(kernel)
+        return _empty_result(theta, v)
+    if _use_kernel(kernel, theta):
+        return fused_update_triton(theta, v, g, eta, beta)
+    return fused_update_flat_ref(theta, v, g, eta, beta)
+
+
 def fused_apply_flat(cur, v, new, w, inv_eta, beta, *, kernel="auto"):
     """Server push apply on flat f32 tensors of one size: mix + momentum +
     sum of squares in one pass. Returns (mixed, v', sumsq), sumsq a 0-d
     f32 tensor on the inputs' device."""
-    check_kernel_mode(kernel)
     if cur.numel() == 0:
-        return (cur.float(), v.float(),
-                torch.zeros((), dtype=torch.float32, device=cur.device))
-    if kernel == "reference" or (kernel == "auto" and not cur.is_cuda):
-        return fused_apply_flat_ref(cur, v, new, w, inv_eta, beta)
-    if not cur.is_cuda:
-        raise ValueError("kernel='triton' needs CUDA tensors; got tensors "
-                         f"on {cur.device}")
-    return fused_apply_triton(cur, v, new, w, inv_eta, beta)
+        check_kernel_mode(kernel)
+        return _empty_result(cur, v)
+    if _use_kernel(kernel, cur):
+        return fused_apply_triton(cur, v, new, w, inv_eta, beta)
+    return fused_apply_flat_ref(cur, v, new, w, inv_eta, beta)
 
 
 # ---------------------------------------------------------------------------
@@ -119,3 +148,22 @@ def fused_weighted_apply(params: Any, v: Any, new_params: Any, *, w,
     return (split_back(m, params, keep_dtype=True),
             split_back(v2, params, keep_dtype=False),
             torch.sqrt(sumsq))
+
+
+def fused_momentum_gap_update(params: Any, v: Any, grads: Any, *, eta: float,
+                              beta: float, lag, kernel: str = "auto"):
+    """Tree version of the client momentum step; same contract as
+    ``repro.optim.gap.fused_momentum_gap_update``: one flatten, one K2
+    pass for Eq. 1 and the new momentum's sum of squares, one split back.
+
+    Returns (new_params, new_v, gap) with the Eq. 4 gap
+    ``eta * (1 - beta^lag) / (1 - beta) * ||v'||_2`` as a 0-d f32 tensor,
+    its scale computed in f32 as the JAX wrapper does."""
+    p_o, v_o, sumsq = fused_update_flat(
+        flatten_concat(params), flatten_concat(v), flatten_concat(grads),
+        eta, beta, kernel=kernel)
+    lag = torch.as_tensor(lag, dtype=torch.float32, device=sumsq.device)
+    scale = eta * (1.0 - beta ** lag) / (1.0 - beta)
+    return (split_back(p_o, params, keep_dtype=True),
+            split_back(v_o, params, keep_dtype=False),
+            scale * torch.sqrt(sumsq))

@@ -103,7 +103,11 @@ def test_import_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.models, "
-        "repro_torch.data, repro_torch.kernels.fused_update\n"
+        "repro_torch.data, repro_torch.kernels.fused_update, "
+        "repro_torch.configs, repro_torch.optim.gap, repro_torch.fault, "
+        "repro_torch.launch.steps, repro_torch.launch.train\n"
+        "from repro_torch.configs import get_config\n"
+        "get_config('qwen3-0.6b')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
