@@ -1,22 +1,27 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the K1 and K2
-Triton kernels from this checkout and holds each against its plain
-version; drives the paper's main path (online-scheduled async LeNet-5
-training) on the card and checks it against the immediate baseline and a
-CPU run; then drives the async federated LM trainer at Qwen3-0.6B's full
-width (596,049,920 parameters, K2 on every island step, K1 on every push),
-holds one full-width train step's K2 epilogue against the plain version
-and profiles a few steps.
+Triton kernels and the K3 and K4 CUDA C++ kernels from this checkout and
+holds each against its plain version; drives the paper's main path
+(online-scheduled async LeNet-5 training) on the card and checks it
+against the immediate baseline and a CPU run; drives the async federated
+LM trainer at Qwen3-0.6B's full width (596,049,920 parameters, K2 on
+every island step, K1 on every push), holds one full-width train step's
+K2 epilogue against the plain version and profiles a few steps; then
+serves Qwen3-0.6B (attention_impl="flash": K4 on every layer's prefill)
+and Mamba2-370m (K3 on every layer's prefill) at full width through
+``launch.serve.BatchedServer``, compares each kernel route's prefill
+logits with the plain route's, and profiles a few decode steps.
 
     python3 chip_smoke.py
 
-Needs a CUDA device (exits non-zero without one) and nothing but this
-repository's ``src/``. Every phase raises on failure; nothing is caught.
-The last line of standard output is
+Needs a CUDA device and the CUDA toolkit (exits non-zero without a
+device) and nothing but this repository's ``src/``. Every phase raises on
+failure; nothing is caught. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
 the line before it the ``{"kernels": [...]}`` record.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import inspect
 import json
@@ -46,6 +51,21 @@ K2_ETA_BETA = ((0.01, 0.9), (0.05, 0.9), (0.1, 0.0))
 # the LM trainer's defaults (4 islands, batch 8, seq 64, 4 local steps),
 # 120 scheduler slots with an evaluation every 60
 LM_RUN = dict(slots=120, eval_every=60, app_arrival_p=0.05)
+# H100 SXM peaks (NVIDIA data sheet): HBM3, bf16 tensor cores, f32 CUDA
+# cores
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# K4: tests/test_kernels.py TestFlashAttention shapes (B, H, KV, S, d), a
+# ragged S, and Qwen3-0.6B's serving prefill (batch 8 x 512 tokens)
+K4_SHAPES = ((1, 4, 4, 256, 64), (2, 8, 2, 256, 128), (1, 4, 2, 384, 64),
+             (1, 2, 1, 512, 32), (2, 4, 2, 200, 64))
+K4_SERVE = (8, 16, 8, 512, 128)
+# K3: TestSSDScan shapes (B, S, nh, ph, s, chunk); Mamba2-370m's serving
+# prefill folds batch 8 x 32 heads into BH = 256 rows of 512 tokens
+K3_SHAPES = ((2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
+             (2, 96, 3, 8, 24, 32), (1, 64, 8, 64, 128, 16))
+K3_SERVE = (256, 512, 64, 128, 256)      # BH, S, ph, s, chunk
+# serving: 8 prompts of 512 tokens, 32 new tokens each, on the card
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 
 
 def card_line() -> str:
@@ -409,6 +429,325 @@ def profile_lm_steps(params, cfg, make_train_step, n_steps=3):
               f"{key[:90]}", flush=True)
 
 
+def randn(shape, gen, dtype=torch.float32, scale=1.0):
+    return (scale * torch.randn(shape, generator=gen, device="cuda")).to(
+        dtype)
+
+
+def phase_build(cuda_build):
+    """Build the CUDA C++ kernels (one nvcc per source, started together)
+    and print what ptxas said about registers, shared memory and spills."""
+    built = cuda_build.build_all()
+    for name, (path, secs) in built.items():
+        print(f"build {name}: {path.name} ready after {secs:.1f} s",
+              flush=True)
+        for line in cuda_build.ptxas_report(name).splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                print(f"ptxas {name}: {line.strip()[:150]}", flush=True)
+
+
+def phase_k4(flash_attention):
+    """K4 (CUDA C++) against its plain version on the same CUDA tensors:
+    the TestFlashAttention shapes and a ragged S, causal and not, at the
+    reference's bounds (2e-5 in f32, 2e-2 in bf16), then the serving shape
+    in bf16 with its times: the kernel, the plain version, the bound and
+    torch's SDPA (one call computing the same function; the port never
+    calls it)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    max_err = 0.0
+    for B, H, KV, S, d in K4_SHAPES + (K4_SERVE,):
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q = randn((B, H, S, d), gen, dtype)
+            k, v = (randn((B, KV, S, d), gen, dtype) for _ in "kv")
+            for causal in (True, False):
+                out = flash_attention(q, k, v, causal=causal, kernel="cuda")
+                ref = flash_attention(q, k, v, causal=causal,
+                                      kernel="reference")
+                err, ok = max_violation(out.float(), ref.float(), tol, tol)
+                assert ok and out.dtype == dtype, (B, H, KV, S, d, dtype,
+                                                   causal, err)
+                max_err = max(max_err, err)
+            print(f"K4 {(B, H, KV, S, d)} {str(dtype)[6:]}: causal and "
+                  f"full match the plain version at {tol} (max abs err "
+                  f"{err!r} full)", flush=True)
+    B, H, KV, S, d = K4_SERVE
+    q = randn((B, H, S, d), gen, torch.bfloat16)
+    k, v = (randn((B, KV, S, d), gen, torch.bfloat16) for _ in "kv")
+    ms = time_ms(lambda: flash_attention(q, k, v, kernel="cuda"), 50)
+    plain = time_ms(lambda: flash_attention(q, k, v, kernel="reference"), 10)
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 50)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, o, k, v
+    flops = 4 * B * H * d * S * (S + 1) // 2     # QK^T and PV, j <= i only
+    bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+    print(f"K4 serving shape {K4_SERVE} bf16 causal: kernel {ms:.6f} ms, "
+          f"plain {plain:.6f} ms, SDPA {sdpa:.6f} ms, bound {bound:.6f} ms "
+          f"({nbytes} B at 3.35 TB/s; {flops} FLOP take "
+          f"{flops / BF16_FLOPS * 1e3:.6f} ms at the bf16 tensor-core peak, "
+          f"{flops / F32_FLOPS * 1e3:.6f} ms on the f32 CUDA cores)",
+          flush=True)
+    return max_err, (ms, plain, bound, "bytes" if nbytes / HBM_BPS >=
+                     flops / BF16_FLOPS else "operations", sdpa)
+
+
+def k3_fold(X, dtv, A, Bh, Ch):
+    B_, S, nh = dtv.shape
+    fold = [t.movedim(2, 1).reshape(B_ * nh, S, -1).contiguous()
+            for t in (X, Bh, Ch)]
+    return (fold[0], dtv.movedim(2, 1).reshape(B_ * nh, S).contiguous(),
+            A.repeat(B_), fold[1], fold[2])
+
+
+def phase_k3(ssd, ssm_model):
+    """K3 (CUDA C++) against its plain version and the sequential
+    recurrence at the reference's bound, 1e-4 (f32 sums in another order):
+    the TestSSDScan shapes, an init_state continuation, an S that is no
+    chunk multiple through the model's padded ssd_chunked, and the serving
+    shape in bf16 (atol 1e-4 x max(1, max|ref|): its outputs reach ~40),
+    with its times beside the bound. No single PyTorch call computes K3's
+    function."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(B, S, nh, ph, s, dtype=torch.float32):
+        X = randn((B, S, nh, ph), gen, dtype)
+        dtv = torch.nn.functional.softplus(randn((B, S, nh), gen))
+        A = -torch.exp(randn((nh,), gen, scale=0.3))
+        Bh, Ch = (randn((B, S, nh, s), gen, dtype, 0.5) for _ in "BC")
+        return X, dtv, A, Bh, Ch
+
+    def check(a, b, tol, scaled=False):
+        atol = tol * max(1.0, float(b.abs().max())) if scaled else tol
+        err, ok = max_violation(a.float(), b.float(), tol, atol)
+        assert ok and bool(torch.isfinite(a).all()), err
+        return err
+
+    max_err = 0.0
+    for B, S, nh, ph, s, chunk in K3_SHAPES:
+        args = inputs(B, S, nh, ph, s)
+        folded = k3_fold(*args)
+        for a, b in zip(ssd.ssd_intra_chunk_cuda(*folded, chunk=chunk),
+                        ssd.ssd_intra_chunk_ref(*folded, chunk=chunk)):
+            max_err = max(max_err, check(a, b, 1e-4))
+        y, f = ssd.ssd_chunked(*args, chunk, kernel="cuda")
+        yr, fr = ssd.ssd_chunked_ref(*args)
+        check(y, yr, 1e-4)
+        check(f, fr, 1e-4)
+        print(f"K3 {(B, S, nh, ph, s, chunk)}: intra-chunk outputs match "
+              f"the plain version, y and the final state the sequential "
+              f"recurrence, at 1e-4", flush=True)
+    X, dtv, A, Bh, Ch = inputs(1, 64, 2, 8, 16)
+    y_all, f_all = ssd.ssd_chunked(X, dtv, A, Bh, Ch, 16, kernel="cuda")
+    _, f1 = ssd.ssd_chunked(X[:, :32], dtv[:, :32], A, Bh[:, :32],
+                            Ch[:, :32], 16, kernel="cuda")
+    y2, f2 = ssd.ssd_chunked(X[:, 32:], dtv[:, 32:], A, Bh[:, 32:],
+                             Ch[:, 32:], 16, init_state=f1, kernel="cuda")
+    check(y2, y_all[:, 32:], 1e-4)
+    check(f2, f_all, 1e-4)
+    args = inputs(1, 300, 4, 64, 128)        # 300 = 256 + 44: padded
+    y, f = ssm_model.ssd_chunked(*args, 256, kernel="cuda")
+    yr, fr = ssd.ssd_chunked_ref(*args)
+    check(y, yr, 1e-4)
+    check(f, fr, 1e-4)
+    print("K3: init_state continuation and the padded model ssd_chunked "
+          "(S=300, chunk 256) match at 1e-4", flush=True)
+
+    BH, S, ph, s, Q = K3_SERVE
+    X = randn((BH, S, ph), gen, torch.bfloat16)
+    dtv = torch.nn.functional.softplus(randn((BH, S), gen) - 4.0)
+    A = -torch.linspace(1.0, 16.0, 32, device="cuda").repeat(BH // 32)
+    Bh, Ch = (randn((BH, S, s), gen, torch.bfloat16, 0.5) for _ in "BC")
+    got = ssd.ssd_intra_chunk_cuda(X, dtv, A, Bh, Ch, chunk=Q)
+    ref = ssd.ssd_intra_chunk_ref(X, dtv, A, Bh, Ch, chunk=Q)
+    serve_err = max(check(a, b, 1e-4, scaled=True) for a, b in zip(got, ref))
+    max_err = max(max_err, serve_err)
+    ms = time_ms(lambda: ssd.ssd_intra_chunk_cuda(X, dtv, A, Bh, Ch,
+                                                  chunk=Q), 50)
+    plain = time_ms(lambda: ssd.ssd_intra_chunk_ref(X, dtv, A, Bh, Ch,
+                                                    chunk=Q), 10)
+    nc = S // Q
+    nbytes = sum(t.numel() * t.element_size() for t in (X, dtv, A, Bh, Ch)) \
+        + sum(t.numel() * 4 for t in got)
+    flops = BH * nc * (2 * Q * Q * s + 2 * Q * Q * ph + 2 * Q * s * ph)
+    bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+    print(f"K3 serving shape (BH, S, ph, s, Q) = {K3_SERVE} bf16: max abs "
+          f"err {serve_err!r}; kernel {ms:.6f} ms, plain {plain:.6f} ms, "
+          f"bound {bound:.6f} ms ({nbytes} B at 3.35 TB/s; {flops} FLOP as "
+          f"the TPU kernel counts them take {flops / BF16_FLOPS * 1e3:.6f} "
+          f"ms at the bf16 tensor-core peak, {flops / F32_FLOPS * 1e3:.6f} "
+          f"ms on the f32 CUDA cores); no single PyTorch call computes it",
+          flush=True)
+    return max_err, (ms, plain, bound, "bytes" if nbytes / HBM_BPS >=
+                     flops / BF16_FLOPS else "operations", None)
+
+
+def serve_prompts(cfg):
+    from repro_torch.data.synthetic import synthetic_tokens
+    n = SERVE_BATCH * SERVE_PROMPT
+    return synthetic_tokens(n, cfg.vocab_size, seed=3).reshape(
+        SERVE_BATCH, SERVE_PROMPT)
+
+
+def prefill_logits(model, params, prompts):
+    with torch.inference_mode():
+        cache = model.init_cache(prompts.shape[0],
+                                 prompts.shape[1] + SERVE_GEN,
+                                 device="cuda")
+        logits, _ = model.prefill(params, {"tokens": torch.from_numpy(
+            prompts.astype(np.int64)).cuda()}, cache)
+    return logits[:, -1].float()
+
+
+def compare_routes(label, auto, ref):
+    """The kernel route's prefill logits against the plain route's: the
+    max abs difference, and the argmax equal on every row whose top-2
+    margin under the plain route exceeds 0.1 (bf16 near-ties may flip)."""
+    diff = float((auto - ref).abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0.1
+    same = torch.argmax(auto, -1) == torch.argmax(ref, -1)
+    assert bool(torch.isfinite(auto).all())
+    assert bool(same[clear].all()), (label, same, clear)
+    print(f"{label}: prefill logits, kernel vs plain route: max abs diff "
+          f"{diff!r} (logits up to {float(ref.abs().max())!r}); argmax "
+          f"equal on {int(same[clear].sum())} of {int(clear.sum())} rows "
+          f"with a top-2 margin > 0.1 ({int(same.sum())} of {len(same)} "
+          f"rows in all)", flush=True)
+    return diff
+
+
+def profile_decode(srv, prompts, n_steps=4):
+    """torch.profiler over a few decode steps after a prefill: device busy
+    time against the wall, the idle share and the kernels per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m, params = srv.model, srv.params
+    with torch.inference_mode():
+        cache = m.init_cache(prompts.shape[0], prompts.shape[1] + n_steps + 1,
+                             device="cuda")
+        logits, cache = m.prefill(params, {"tokens": torch.from_numpy(
+            prompts.astype(np.int64)).cuda()}, cache)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        logits, cache = m.decode_step(params, cache, {"tokens": tok})  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                logits, cache = m.decode_step(params, cache, {"tokens": tok})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(r[1] for r in rows) * 1e-6
+    n_kernels = sum(r[2] for r in rows)
+    print(f"{srv.cfg.name} decode profile: {n_steps} steps, wall {wall!r} s "
+          f"(profiled), {wall / n_steps * 1e3!r} ms/step, device busy "
+          f"{busy!r} s, idle share {1.0 - busy / wall!r}, "
+          f"{n_kernels / n_steps!r} kernels per step", flush=True)
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"{srv.cfg.name} decode profile:   {us * 1e-3:9.3f} ms  "
+              f"{count:6d}x  {key[:90]}", flush=True)
+
+
+def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
+    """``BatchedServer.generate`` of SERVE_BATCH prompts of SERVE_PROMPT
+    tokens and SERVE_GEN new tokens on the card (after a short warm-up
+    generate), counting the kernel's launches over exactly that call; the
+    prefill and each decode step timed by CUDA events around the model's
+    calls; then the kernel-vs-plain prefill comparison and a decode
+    profile. Returns (server, prompts, tokens, launches)."""
+    srv = BatchedServer(cfg, params=params, device="cuda")
+    prompts = serve_prompts(cfg)
+    srv.generate(prompts[:, :64], 2)                      # warm-up
+    spans = {"prefill": [], "decode_step": []}
+
+    def timed(name):
+        fn = getattr(srv.model, name)
+
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        return call
+
+    model = srv.model
+    srv.model = model._replace(prefill=timed("prefill"),
+                               decode_step=timed("decode_step"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, SERVE_GEN)
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    srv.model = model
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = spans["prefill"][0][0].elapsed_time(spans["prefill"][0][1])
+    decode_ms = [a.elapsed_time(b) for a, b in spans["decode_step"]]
+    assert toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.dtype == np.int32
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert launches == per_layer * cfg.num_layers, (launches,
+                                                    cfg.num_layers)
+    print(f"serve {cfg.name} ({cfg.param_count()} parameters, "
+          f"attention_impl={cfg.attention_impl}): generate {SERVE_BATCH} x "
+          f"{SERVE_PROMPT} prompt tokens + {SERVE_GEN} new: wall {wall!r} s, "
+          f"{toks.size / wall!r} generated tokens/s; prefill {prefill_ms!r} "
+          f"ms, decode {sum(decode_ms) / len(decode_ms)!r} ms/token "
+          f"(CUDA events around each model call, {len(decode_ms)} steps); "
+          f"kernel launches {launches} ({cfg.num_layers} layers); peak "
+          f"memory {peak / 2 ** 30!r} GiB; first row {toks[0][:8].tolist()}",
+          flush=True)
+    auto = prefill_logits(model, srv.params, prompts)
+    counted = counter.launches
+    ref = prefill_logits(build_model(cfg, kernel="reference"), srv.params,
+                         prompts)
+    assert counter.launches == counted, "the plain route launched a kernel"
+    compare_routes(f"serve {cfg.name}", auto, ref)
+    profile_decode(srv, prompts)
+    return srv, prompts, toks, launches
+
+
+def phase_serve_qwen(BatchedServer, build_model, cfg, params, k4):
+    """Qwen3-0.6B at full width under attention_impl="flash" (K4 on each
+    layer's prefill), then the same prompts on the einsum route."""
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    srv, prompts, toks, launches = run_serve(
+        BatchedServer, build_model, flash, params, k4, per_layer=1)
+    xla_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    xla = BatchedServer(xla_cfg, params=params, device="cuda")
+    k4.launches = 0
+    t0 = time.perf_counter()
+    xla_toks = xla.generate(prompts, SERVE_GEN)
+    wall = time.perf_counter() - t0
+    assert k4.launches == 0, "the einsum route launched K4"
+    xla_logits = prefill_logits(xla.model, params, prompts)
+    flash_logits = prefill_logits(srv.model, params, prompts)
+    print(f"serve {cfg.name}: the einsum route (attention_impl=xla, "
+          f"_sdpa over the whole cache): generate wall {wall!r} s; prefill "
+          f"logits max abs diff to the flash route "
+          f"{float((xla_logits - flash_logits).abs().max())!r}; equal "
+          f"greedy tokens {float((xla_toks == toks).mean())!r} of "
+          f"{toks.size}", flush=True)
+    return launches
+
+
+def phase_serve_mamba(BatchedServer, build_model, k3):
+    """Mamba2-370m at full width, random weights from seed 0 (K3 on each
+    layer's prefill)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    srv = BatchedServer(cfg, seed=0, device="cuda")
+    return run_serve(BatchedServer, build_model, cfg, srv.params, k3,
+                     per_layer=1)[3]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -426,6 +765,11 @@ def main() -> int:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.kernels.fused_update.kernel import (BYTES_PER_ELEMENT,
                                                          HBM_BYTES_PER_S)
+    from repro_torch.kernels import _cuda_build, ssd_scan
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cuda)
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import build_model, ssm as ssm_model
     import triton
 
     def bound_ms(n):    # 3 f32 reads + 2 f32 writes per element + sumsq
@@ -440,6 +784,19 @@ def main() -> int:
           f"x{torch.cuda.device_count()}; cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+
+    # ---- 1b. the CUDA C++ kernels: build, then K4 and K3 against their
+    # plain versions ---------------------------------------------------------
+    t = time.perf_counter()
+    phase_build(_cuda_build)
+    print(f"CUDA build phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    k4_err, k4_times = phase_k4(flash_attention)
+    print(f"K4 phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    k3_err, k3_times = phase_k3(ssd_scan, ssm_model)
+    print(f"K3 phase: {time.perf_counter() - t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
 
     # ---- 2. K1 against its plain version ---------------------------------
     t = time.perf_counter()
@@ -504,7 +861,19 @@ def main() -> int:
     profile_lm_steps(params, cfg, make_train_step)
     print(f"LM step phase: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # ---- 8. the kernels record ---------------------------------------------
+    # ---- 8. serving at full width: Qwen3-0.6B (K4), Mamba2-370m (K3) ----
+    t = time.perf_counter()
+    k4_launches = phase_serve_qwen(
+        BatchedServer, build_model, cfg, params, flash_attention_cuda)
+    print(f"serve Qwen3 phase: {time.perf_counter() - t:.1f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    k3_launches = phase_serve_mamba(
+        BatchedServer, build_model, ssd_scan.ssd_intra_chunk_cuda)
+    print(f"serve Mamba2 phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 9. the kernels record ---------------------------------------------
     ms, plain_ms, b_ms = times[LENET_N]
     k2_ms, k2_plain, k2_bound, _ = k2_times[QWEN_N]
     print(f"K1 at the LM's {QWEN_N} parameters: kernel "
@@ -537,6 +906,30 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "K3 ssd_intra_chunk (Mamba2 SSD intra-chunk step)",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:35",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_times[0],
+        "plain_ms": k3_times[1],
+        "bound_ms": k3_times[2],
+        "bound_by": k3_times[3],
+        "library_ms": k3_times[4],
+    }, {
+        "name": "K4 flash_attention (causal GQA online-softmax attention)",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:38",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": k4_times[0],
+        "plain_ms": k4_times[1],
+        "bound_ms": k4_times[2],
+        "bound_by": k4_times[3],
+        "library_ms": k4_times[4],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,15 @@
 ``get_smoke_config(arch_id)``, the counterpart of ``repro/configs``.
 
 The port has the architectures whose family it builds (``models/zoo.py``):
-so far the dense ``qwen3-0.6b``. Every other id of the JAX registry is
-still to port and raises (ROADMAP Queue 1 item 12).
+the dense ``qwen3-0.6b`` and the SSM ``mamba2-370m``. Every other id of
+the JAX registry is still to port and raises (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
 import importlib
 
-ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "qwen3_0_6b": "qwen3_0_6b"}
+ALIASES = {"qwen3-0.6b": "qwen3_0_6b", "qwen3_0_6b": "qwen3_0_6b",
+           "mamba2-370m": "mamba2_370m", "mamba2_370m": "mamba2_370m"}
 
 
 def _module(arch: str):

@@ -1,0 +1,91 @@
+"""The ctypes binding of K4, the CUDA C++ flash attention in
+``src/repro_torch/csrc/flash_attention.cu`` (built by
+``kernels/_cuda_build.py`` on first use).
+
+``flash_attention_cuda`` checks its tensors, allocates the output and
+launches the kernel on the current stream; ``flash_attention_cuda.
+launches`` counts its launches. The kernel has no backward (neither has
+the TPU kernel it replaces), so a call that would need a gradient raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _cuda_build
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT31 = 2 ** 31
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 19
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _check(q, k, v, causal):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention_cuda: q must be (B, H, Sq, d) and "
+                         "k, v (B, KV, Sk, d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, d = q.shape
+    _, KV, Sk, dk = k.shape
+    if k.shape[0] != B or dk != d or KV == 0 or H % KV:
+        raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and "
+                         f"k/v {tuple(k.shape)} do not make GQA")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if causal and Sq != Sk:
+        raise ValueError(f"causal attention needs Sq == Sk, got Sq={Sq}, "
+                         f"Sk={Sk}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device or t.dtype != q.dtype \
+                or t.dtype not in DTYPES:
+            raise ValueError(
+                f"flash_attention_cuda: {name} must be an f32 or bf16 CUDA "
+                f"tensor like q, got {t.dtype} on {t.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_cuda: {name} needs a "
+                             f"contiguous last dimension, got strides "
+                             f"{t.stride()}")
+        if sum((n - 1) * s for n, s in zip(t.shape, t.stride())) >= _INT31:
+            raise ValueError(f"flash_attention_cuda: {name} exceeds the "
+                             "kernel's int32 strides")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_cuda has no backward (nor has "
+                           "the TPU kernel it replaces); call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
+    """Launch K4: q (B, H, Sq, d), k/v (B, KV, Sk, d) on one CUDA device,
+    f32 or bf16 alike, last dimension contiguous. Returns o like q (same
+    dtype and layout), a new tensor."""
+    _check(q, k, v, causal)
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    lib = _lib()
+    code = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        DTYPES[q.dtype], B, H, KV, Sq, Sk, d, *strides, float(scale),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda_build.check(lib, "flash_attention_launch", code)
+    flash_attention_cuda.launches += 1
+    return o
+
+
+flash_attention_cuda.launches = 0   # K4 launches since the last reset

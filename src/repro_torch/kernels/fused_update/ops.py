@@ -2,17 +2,9 @@
 apply (K1): flat tensors and whole trees.
 
 ``fused_update_flat`` is the one dispatch point of K2 and
-``fused_apply_flat`` that of K1. ``kernel`` picks the implementation from
-the device of the tensors it is given:
-
-- ``"auto"``: the Triton kernel for CUDA tensors, the plain version for
-  CPU tensors (which only a caller that asked for the CPU has);
-- ``"triton"``: the Triton kernel; a CPU tensor raises;
-- ``"reference"``: the plain version on either device, an explicit choice
-  (``chip_smoke.py`` uses it to hold the kernels against it on the card).
-
-There is no fallback: a CUDA tensor under ``auto``/``triton`` launches the
-kernel or raises.
+``fused_apply_flat`` that of K1. ``kernel`` (``"auto"``, ``"triton"`` or
+``"reference"``) picks the implementation from the device of the tensors
+it is given, by the rule of ``kernels/mode.py``.
 
 ``fused_momentum_gap_update`` and ``fused_weighted_apply`` are the tree
 versions (the counterparts of ``repro.kernels.fused_update.ops``'s
@@ -27,28 +19,20 @@ from typing import Any
 
 import torch
 
+from .. import mode
 from .kernel import fused_apply_triton, fused_update_triton
 from .ref import fused_apply_flat_ref, fused_update_flat_ref
 
-KERNEL_MODES = ("auto", "triton", "reference")
+KERNEL_MODES = mode.kernel_modes("triton")
 
 
-def check_kernel_mode(mode: str) -> str:
-    if mode not in KERNEL_MODES:
-        raise ValueError(f"unknown kernel mode {mode!r}; expected one of "
-                         f"{KERNEL_MODES}")
-    return mode
+def check_kernel_mode(kernel: str) -> str:
+    return mode.check_kernel_mode(kernel, "triton")
 
 
 def _use_kernel(kernel: str, t) -> bool:
     """Whether ``kernel`` launches the Triton kernel for tensor ``t``."""
-    check_kernel_mode(kernel)
-    if kernel == "reference" or (kernel == "auto" and not t.is_cuda):
-        return False
-    if not t.is_cuda:
-        raise ValueError("kernel='triton' needs CUDA tensors; got tensors "
-                         f"on {t.device}")
-    return True
+    return mode.use_kernel(kernel, t, "triton")
 
 
 def _empty_result(a, b):

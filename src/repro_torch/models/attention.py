@@ -1,5 +1,5 @@
-"""GQA attention with RoPE and qk-norm — the counterpart of
-``repro/models/attention.py`` for the training path (no KV cache).
+"""GQA attention with RoPE, qk-norm and the KV cache — the counterpart of
+``repro/models/attention.py``.
 
 Numerics follow the JAX package: every projection casts its f32 weight to
 the activation dtype; the scores ``q k^T`` come out in that dtype and are
@@ -8,15 +8,28 @@ the softmax runs in f32 and its weights are cast back to the activation
 dtype before ``w v``. GQA groups query heads as ``(KV, G)``, so query head
 h reads KV head ``h // G``.
 
-Only ``attention_impl="xla"`` (einsum attention) is ported; ``chunked``
-raises, and the flash kernel (K4) is still to port (ROADMAP Queue 2). The
-KV-cache decode and the cross-attention of the JAX ``attention`` are
-still to port with prefill/decode (ROADMAP Queue 1 item 12).
+``attention_impl``:
+- ``"xla"``: the einsum attention ``_sdpa`` (with a cache, over all its
+  slots, the unwritten ones masked), as in the JAX package;
+- ``"flash"``: causal self-attention with Sq == Sk — training without a
+  cache, and the prefill (``cache_pos == 0``) on its fresh keys — goes
+  through K4 (``kernels/flash_attention``, the CUDA kernel on CUDA
+  tensors). At ``cache_pos == 0`` every cache slot past Sq is masked and
+  contributes exactly 0, so K4 on the fresh keys is the same function as
+  ``_sdpa`` over the cache. Decode (Sq = 1 over the cache) and an explicit
+  mask stay on ``_sdpa``; a ``logits_softcap`` is not part of K4's
+  contract and raises;
+- ``"chunked"`` and cross-attention (``kv_override``) are still to port
+  (ROADMAP Queue 1 item 12) and raise.
+
+``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) picks how K4 runs.
+K4 has no backward: a flash call that needs a gradient raises on CUDA.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.flash_attention import flash_attention
 from .common import apply_rope, dense_init, rms_norm
 
 
@@ -83,18 +96,61 @@ def causal_mask(Sq: int, Sk: int, offset: int = 0, device=None):
     return (kj <= qi)[None, None, None, :, :]   # (1,1,1,Sq,Sk) for bkgqs
 
 
-def attention(x, p, cfg, positions=None, mask=None):
-    """Full attention block body (no residual / norm): the JAX function's
-    ``out`` (its second result, the new KV cache, is always None on the
-    training path)."""
+def _flash(q, k, v, kernel):
+    """K4 on (B, S, heads, hd) activations, as (B, heads, S, hd) views;
+    the output comes back in the (B, S, H, hd) layout."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True, kernel=kernel)
+    return out.transpose(1, 2)
+
+
+def attention(x, p, cfg, positions=None, mask=None, kv_cache=None,
+              cache_pos=None, kv_override=None, *, kernel="auto"):
+    """Full attention block body (no residual / norm). Returns
+    ``(out, new_cache)``.
+
+    ``kv_cache``: None, or {"k", "v"} of (B, Smax, KV, hd) — the new k/v
+    are written at ``cache_pos`` (a Python int) IN PLACE into these
+    tensors, which ``new_cache`` returns (JAX's functional update is
+    donated, so it too keeps one cache), and attention runs over the whole
+    cache."""
+    if kv_override is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_override, the audio family) is not ported "
+            "yet (ROADMAP Queue 1 item 12)")
     if cfg.attention_impl == "chunked":
         raise NotImplementedError(
             "attention_impl='chunked' is not ported yet (ROADMAP Queue 1 "
             "item 12)")
+    flash = cfg.attention_impl == "flash"
+    if flash and cfg.logits_softcap:
+        raise NotImplementedError(
+            "attention_impl='flash' with logits_softcap: a softcap is not "
+            "part of K4's contract")
     q, k, v = _project_qkv(x, p, cfg, positions)
-    if mask is None and cfg.causal:
-        mask = causal_mask(q.shape[1], k.shape[1], device=x.device)
-    out = _sdpa(q, k, v, mask, cfg)
+    dt = x.dtype
+    new_cache = None
+    if kv_cache is not None:
+        S = q.shape[1]
+        kv_cache["k"][:, cache_pos:cache_pos + S] = k
+        kv_cache["v"][:, cache_pos:cache_pos + S] = v
+        new_cache = kv_cache
+        if flash and mask is None and cfg.causal and cache_pos == 0:
+            ck, cv = kv_cache["k"][:, :S], kv_cache["v"][:, :S]
+            out = _flash(q, ck.to(dt), cv.to(dt), kernel)
+        else:
+            if mask is None:
+                mask = causal_mask(S, kv_cache["k"].shape[1],
+                                   offset=cache_pos, device=x.device)
+            out = _sdpa(q, kv_cache["k"].to(dt), kv_cache["v"].to(dt), mask,
+                        cfg)
+    elif flash and mask is None and cfg.causal:
+        out = _flash(q, k, v, kernel)
+    else:
+        if mask is None and cfg.causal:
+            mask = causal_mask(q.shape[1], k.shape[1], device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
     B, Sq = x.shape[:2]
-    return out.reshape(B, Sq, cfg.num_heads * cfg.head_dim) \
-        @ p["wo"].to(x.dtype)
+    out = out.reshape(B, Sq, cfg.num_heads * cfg.head_dim) \
+        @ p["wo"].to(dt)
+    return out, new_cache

@@ -63,7 +63,7 @@ def test_configs_match_and_full_width_count():
             full.head_dim, full.d_ff, full.vocab_size) == \
         (28, 1024, 16, 8, 128, 3072, 151936)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        get_config("mamba2-370m")
+        get_config("zamba2-2.7b")
 
 
 def test_leaf_order_matches_jax_tree_leaves():
@@ -102,11 +102,12 @@ def test_attention_matches():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
     pos = np.arange(16)
-    ours = attention.attention(torch.from_numpy(x),
-                               params_from_jax(p0, "cpu"), cfg,
-                               positions=torch.from_numpy(pos))
+    ours, cache = attention.attention(torch.from_numpy(x),
+                                      params_from_jax(p0, "cpu"), cfg,
+                                      positions=torch.from_numpy(pos))
     theirs, _ = jax_attention.attention(jnp.asarray(x), p0, cfg,
                                         positions=jnp.asarray(pos))
+    assert cache is None
     _close(ours, theirs)
 
 
@@ -151,10 +152,11 @@ def test_bf16_loss_matches():
 
 def test_unported_model_paths_raise():
     cfg = get_smoke_config(ARCH)
-    model = build_model(cfg)
-    for fn in (model.prefill, model.decode_step, model.init_cache):
+    for family in (dict(family="audio", is_encoder_decoder=True),
+                   dict(family="hybrid", ssm_state=16, hybrid_period=2,
+                        num_shared_blocks=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(None, None)
+            build_model(dataclasses.replace(cfg, **family))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(dataclasses.replace(cfg, family="moe", num_experts=4))
     chunked = dataclasses.replace(cfg, attention_impl="chunked")

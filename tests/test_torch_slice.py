@@ -105,9 +105,11 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch, repro_torch.core, repro_torch.models, "
         "repro_torch.data, repro_torch.kernels.fused_update, "
         "repro_torch.configs, repro_torch.optim.gap, repro_torch.fault, "
-        "repro_torch.launch.steps, repro_torch.launch.train\n"
+        "repro_torch.launch.steps, repro_torch.launch.train, "
+        "repro_torch.launch.serve, repro_torch.models.ssm, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
         "from repro_torch.configs import get_config\n"
-        "get_config('qwen3-0.6b')\n"
+        "get_config('qwen3-0.6b'), get_config('mamba2-370m')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
