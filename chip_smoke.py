@@ -1,15 +1,17 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the K1 and K2
-Triton kernels and the K3 and K4 CUDA C++ kernels from this checkout and
-holds each against its plain version; drives the paper's main path
-(online-scheduled async LeNet-5 training) on the card and checks it
-against the immediate baseline and a CPU run; drives the async federated
-LM trainer at Qwen3-0.6B's full width (596,049,920 parameters, K2 on
-every island step, K1 on every push), holds one full-width train step's
-K2 epilogue against the plain version and profiles a few steps; then
-serves Qwen3-0.6B (attention_impl="flash": K4 on every layer's prefill)
-and Mamba2-370m (K3 on every layer's prefill) at full width through
-``launch.serve.BatchedServer``, compares each kernel route's prefill
-logits with the plain route's, and profiles a few decode steps.
+Triton kernels and the K3 and K4 CUDA C++ kernels (an f32 form on the
+CUDA cores and a bf16 form on the tensor cores, wgmma fed by TMA, each)
+from this checkout and holds each against its plain version; drives the
+paper's main path (online-scheduled async LeNet-5 training) on the card
+and checks it against the immediate baseline and a CPU run; drives the
+async federated LM trainer at Qwen3-0.6B's full width (596,049,920
+parameters, K2 on every island step, K1 on every push), holds one
+full-width train step's K2 epilogue against the plain version and
+profiles a few steps; then serves Qwen3-0.6B (attention_impl="flash": K4
+on every layer's prefill) and Mamba2-370m (K3 on every layer's prefill)
+at full width through ``launch.serve.BatchedServer``, compares each
+kernel route's prefill logits with the plain route's, and profiles one
+prefill and a few decode steps.
 
     python3 chip_smoke.py
 
@@ -63,7 +65,12 @@ K4_SERVE = (8, 16, 8, 512, 128)
 # prefill folds batch 8 x 32 heads into BH = 256 rows of 512 tokens
 K3_SHAPES = ((2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
              (2, 96, 3, 8, 24, 32), (1, 64, 8, 64, 128, 16))
-K3_SERVE = (256, 512, 64, 128, 256)      # BH, S, ph, s, chunk
+K3_SERVE = (8, 512, 32, 64, 128, 256)    # batch, S, heads, ph, s, chunk
+# times of the first kernels (f32 products on the CUDA cores) at the
+# serving shapes and the prefill times with them, H100 80GB HBM3 at 700 W
+# (PERF.md), printed beside this run's
+FIRST_FORM_MS = {"K4": 0.492898, "K3": 0.713222}
+FIRST_FORM_PREFILL_MS = {"qwen3-0.6b": 48.58, "mamba2-370m": 102.34}
 # serving: 8 prompts of 512 tokens, 32 new tokens each, on the card
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 
@@ -449,10 +456,11 @@ def phase_build(cuda_build):
 def phase_k4(flash_attention):
     """K4 (CUDA C++) against its plain version on the same CUDA tensors:
     the TestFlashAttention shapes and a ragged S, causal and not, at the
-    reference's bounds (2e-5 in f32, 2e-2 in bf16), then the serving shape
-    in bf16 with its times: the kernel, the plain version, the bound and
-    torch's SDPA (one call computing the same function; the port never
-    calls it)."""
+    reference's bounds (2e-5 in f32: the CUDA-core form; 2e-2 in bf16: the
+    wgmma form, which rounds P to bf16), then the serving shape in bf16
+    with its times: the kernel, the plain version, the bound and torch's
+    SDPA (one call computing the same function; the port never calls
+    it)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(4)
     max_err = 0.0
@@ -481,8 +489,9 @@ def phase_k4(flash_attention):
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, o, k, v
     flops = 4 * B * H * d * S * (S + 1) // 2     # QK^T and PV, j <= i only
     bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
-    print(f"K4 serving shape {K4_SERVE} bf16 causal: kernel {ms:.6f} ms, "
-          f"plain {plain:.6f} ms, SDPA {sdpa:.6f} ms, bound {bound:.6f} ms "
+    print(f"K4 serving shape {K4_SERVE} bf16 causal: kernel {ms:.6f} ms "
+          f"(the first, CUDA-core form: {FIRST_FORM_MS['K4']} ms), plain "
+          f"{plain:.6f} ms, SDPA {sdpa:.6f} ms, bound {bound:.6f} ms "
           f"({nbytes} B at 3.35 TB/s; {flops} FLOP take "
           f"{flops / BF16_FLOPS * 1e3:.6f} ms at the bf16 tensor-core peak, "
           f"{flops / F32_FLOPS * 1e3:.6f} ms on the f32 CUDA cores)",
@@ -499,21 +508,50 @@ def k3_fold(X, dtv, A, Bh, Ch):
             A.repeat(B_), fold[1], fold[2])
 
 
+def k3_bf16_check(ssd, args, chunk):
+    """The bf16 K3 on the 4-D views ``args`` against the rounding-matched
+    plain version at 1e-4 x max(1, max|ref|) plus its rounding-boundary
+    slack, and against the f32 plain version at the derived bf16 bound
+    (kernels/ssd_scan/ref.py). Returns (max abs err against the rounded
+    version, the largest ratio of |kernel - f32| to the bound, the
+    outputs)."""
+    got = ssd.ssd_intra_chunk_cuda(*args, chunk=chunk)
+    comp = ssd.ssd_intra_chunk_ref_bf16(*args, chunk=chunk)
+    ref = ssd.ssd_intra_chunk_ref(*args, chunk=chunk)
+    slack = (ssd.bf16_rounding_slack(*args, chunk=chunk), 0.0, 0.0, 0.0)
+    bound = ssd.bf16_bound(*args, chunk=chunk)
+    err, ratio = 0.0, 0.0
+    for i, (a, c, r, sl) in enumerate(zip(got, comp, ref, slack)):
+        assert bool(torch.isfinite(a).all()), i
+        d = (a - c).abs()
+        tol = 1e-4 * max(1.0, float(c.abs().max()))
+        assert bool(torch.all(d <= tol + sl)), (i, float(d.max()), tol)
+        err = max(err, float(d.max()))
+        if i < 2:
+            dr = (a - r).abs()
+            assert bool(torch.all(dr <= bound[i])), i
+            ratio = max(ratio, float((dr / bound[i].clamp_min(1e-30)).max()))
+    return err, ratio, got
+
+
 def phase_k3(ssd, ssm_model):
-    """K3 (CUDA C++) against its plain version and the sequential
-    recurrence at the reference's bound, 1e-4 (f32 sums in another order):
-    the TestSSDScan shapes, an init_state continuation, an S that is no
-    chunk multiple through the model's padded ssd_chunked, and the serving
-    shape in bf16 (atol 1e-4 x max(1, max|ref|): its outputs reach ~40),
-    with its times beside the bound. No single PyTorch call computes K3's
+    """K3 (CUDA C++), both forms. f32 (CUDA cores) against its plain
+    version and the sequential recurrence at the reference's bound, 1e-4
+    (f32 sums in another order): the TestSSDScan shapes, an init_state
+    continuation and an S that is no chunk multiple through the model's
+    padded ssd_chunked. bf16 (wgmma fed by TMA) at the TestSSDScan shapes
+    with one group and the serving shape (batch 8 x 32 heads of one group)
+    on the model's (B, S, heads, .) views: against the rounding-matched
+    plain version and the f32 one (``k3_bf16_check``), with its times
+    beside both interfaces' bounds. No single PyTorch call computes K3's
     function."""
     gen = torch.Generator(device="cuda").manual_seed(3)
 
-    def inputs(B, S, nh, ph, s, dtype=torch.float32):
+    def inputs(B, S, nh, ph, s, dtype=torch.float32, g=None):
         X = randn((B, S, nh, ph), gen, dtype)
         dtv = torch.nn.functional.softplus(randn((B, S, nh), gen))
         A = -torch.exp(randn((nh,), gen, scale=0.3))
-        Bh, Ch = (randn((B, S, nh, s), gen, dtype, 0.5) for _ in "BC")
+        Bh, Ch = (randn((B, S, g or nh, s), gen, dtype, 0.5) for _ in "BC")
         return X, dtv, A, Bh, Ch
 
     def check(a, b, tol, scaled=False):
@@ -522,7 +560,11 @@ def phase_k3(ssd, ssm_model):
         assert ok and bool(torch.isfinite(a).all()), err
         return err
 
-    max_err = 0.0
+    def views(X, dtv, A, Bg, Cg):
+        return (X.movedim(2, 1), dtv.movedim(2, 1), A, Bg.movedim(2, 1),
+                Cg.movedim(2, 1))
+
+    max_err, max_ratio = 0.0, 0.0
     for B, S, nh, ph, s, chunk in K3_SHAPES:
         args = inputs(B, S, nh, ph, s)
         folded = k3_fold(*args)
@@ -533,9 +575,14 @@ def phase_k3(ssd, ssm_model):
         yr, fr = ssd.ssd_chunked_ref(*args)
         check(y, yr, 1e-4)
         check(f, fr, 1e-4)
-        print(f"K3 {(B, S, nh, ph, s, chunk)}: intra-chunk outputs match "
+        err, ratio, _ = k3_bf16_check(
+            ssd, views(*inputs(B, S, nh, ph, s, torch.bfloat16, g=1)), chunk)
+        max_err, max_ratio = max(max_err, err), max(max_ratio, ratio)
+        print(f"K3 {(B, S, nh, ph, s, chunk)}: f32 intra-chunk outputs match "
               f"the plain version, y and the final state the sequential "
-              f"recurrence, at 1e-4", flush=True)
+              f"recurrence, at 1e-4; bf16 (one group) max abs err {err!r} "
+              f"against the rounded plain version, |kernel - f32| at "
+              f"{ratio:.3f} of the bf16 bound", flush=True)
     X, dtv, A, Bh, Ch = inputs(1, 64, 2, 8, 16)
     y_all, f_all = ssd.ssd_chunked(X, dtv, A, Bh, Ch, 16, kernel="cuda")
     _, f1 = ssd.ssd_chunked(X[:, :32], dtv[:, :32], A, Bh[:, :32],
@@ -552,31 +599,37 @@ def phase_k3(ssd, ssm_model):
     print("K3: init_state continuation and the padded model ssd_chunked "
           "(S=300, chunk 256) match at 1e-4", flush=True)
 
-    BH, S, ph, s, Q = K3_SERVE
-    X = randn((BH, S, ph), gen, torch.bfloat16)
-    dtv = torch.nn.functional.softplus(randn((BH, S), gen) - 4.0)
-    A = -torch.linspace(1.0, 16.0, 32, device="cuda").repeat(BH // 32)
-    Bh, Ch = (randn((BH, S, s), gen, torch.bfloat16, 0.5) for _ in "BC")
-    got = ssd.ssd_intra_chunk_cuda(X, dtv, A, Bh, Ch, chunk=Q)
-    ref = ssd.ssd_intra_chunk_ref(X, dtv, A, Bh, Ch, chunk=Q)
-    serve_err = max(check(a, b, 1e-4, scaled=True) for a, b in zip(got, ref))
-    max_err = max(max_err, serve_err)
-    ms = time_ms(lambda: ssd.ssd_intra_chunk_cuda(X, dtv, A, Bh, Ch,
-                                                  chunk=Q), 50)
-    plain = time_ms(lambda: ssd.ssd_intra_chunk_ref(X, dtv, A, Bh, Ch,
-                                                    chunk=Q), 10)
+    B, S, nh, ph, s, Q = K3_SERVE
+    X = randn((B, S, nh, ph), gen, torch.bfloat16)
+    dtv = torch.nn.functional.softplus(randn((B, S, nh), gen) - 4.0)
+    A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+    Bg, Cg = (randn((B, S, 1, s), gen, torch.bfloat16, 0.5) for _ in "BC")
+    args = views(X, dtv, A, Bg, Cg)
+    err, ratio, got = k3_bf16_check(ssd, args, Q)
+    max_err, max_ratio = max(max_err, err), max(max_ratio, ratio)
+    ms = time_ms(lambda: ssd.ssd_intra_chunk_cuda(*args, chunk=Q), 50)
+    plain = time_ms(lambda: ssd.ssd_intra_chunk_ref(*args, chunk=Q), 10)
     nc = S // Q
-    nbytes = sum(t.numel() * t.element_size() for t in (X, dtv, A, Bh, Ch)) \
-        + sum(t.numel() * 4 for t in got)
-    flops = BH * nc * (2 * Q * Q * s + 2 * Q * Q * ph + 2 * Q * s * ph)
+    out_bytes = sum(t.numel() * 4 for t in got)
+    nbytes = sum(t.numel() * t.element_size() for t in (X, dtv, A, Bg, Cg)) \
+        + out_bytes
+    # the per-head interface of the first kernel read B and C once per head
+    # and A per (batch, head)
+    head_bytes = nbytes + (nh - 1) * 2 * Bg.numel() * Bg.element_size() \
+        + (B - 1) * A.numel() * 4
+    flops = B * nh * nc * (2 * Q * Q * s + 2 * Q * Q * ph + 2 * Q * s * ph)
     bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
-    print(f"K3 serving shape (BH, S, ph, s, Q) = {K3_SERVE} bf16: max abs "
-          f"err {serve_err!r}; kernel {ms:.6f} ms, plain {plain:.6f} ms, "
-          f"bound {bound:.6f} ms ({nbytes} B at 3.35 TB/s; {flops} FLOP as "
-          f"the TPU kernel counts them take {flops / BF16_FLOPS * 1e3:.6f} "
-          f"ms at the bf16 tensor-core peak, {flops / F32_FLOPS * 1e3:.6f} "
-          f"ms on the f32 CUDA cores); no single PyTorch call computes it",
-          flush=True)
+    print(f"K3 serving shape (batch, S, heads, ph, s, Q) = {K3_SERVE}, one "
+          f"group, bf16: max abs err {err!r} against the rounded plain "
+          f"version, |kernel - f32| at {ratio:.3f} of the bf16 bound; kernel "
+          f"{ms:.6f} ms (the first, CUDA-core form: "
+          f"{FIRST_FORM_MS['K3']} ms), "
+          f"plain {plain:.6f} ms, bound {bound:.6f} ms ({nbytes} B at 3.35 "
+          f"TB/s with B/C read once per group; the per-head interface "
+          f"{head_bytes} B, {head_bytes / HBM_BPS * 1e3:.6f} ms; {flops} FLOP "
+          f"as the TPU kernel counts them take "
+          f"{flops / BF16_FLOPS * 1e3:.6f} ms at the bf16 tensor-core peak); "
+          f"no single PyTorch call computes it", flush=True)
     return max_err, (ms, plain, bound, "bytes" if nbytes / HBM_BPS >=
                      flops / BF16_FLOPS else "operations", None)
 
@@ -652,13 +705,47 @@ def profile_decode(srv, prompts, n_steps=4):
               f"{count:6d}x  {key[:90]}", flush=True)
 
 
+def profile_prefill(srv, prompts, top=10):
+    """torch.profiler over one prefill of the serving prompts (after the
+    warm-up generate): device busy time against the wall, the idle share,
+    and the kernels that take the most device time, the hand kernel's
+    share among them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m, params = srv.model, srv.params
+    with torch.inference_mode():
+        cache = m.init_cache(prompts.shape[0], prompts.shape[1] + 1,
+                             device="cuda")
+        tokens = torch.from_numpy(prompts.astype(np.int64)).cuda()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m.prefill(params, {"tokens": tokens}, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(r[1] for r in rows) * 1e-6
+    print(f"{srv.cfg.name} prefill profile: wall {wall * 1e3!r} ms "
+          f"(profiled), device busy {busy * 1e3!r} ms, idle share "
+          f"{1.0 - busy / wall!r}, {sum(r[2] for r in rows)} kernels",
+          flush=True)
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        print(f"{srv.cfg.name} prefill profile:   {us * 1e-3:9.3f} ms "
+              f"({us * 1e-6 / busy:6.1%})  {count:5d}x  {key[:90]}",
+              flush=True)
+
+
 def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
     """``BatchedServer.generate`` of SERVE_BATCH prompts of SERVE_PROMPT
     tokens and SERVE_GEN new tokens on the card (after a short warm-up
     generate), counting the kernel's launches over exactly that call; the
     prefill and each decode step timed by CUDA events around the model's
-    calls; then the kernel-vs-plain prefill comparison and a decode
-    profile. Returns (server, prompts, tokens, launches)."""
+    calls; then the kernel-vs-plain prefill comparison and a profile of
+    one prefill and of a few decode steps. Returns (server, prompts,
+    tokens, launches)."""
     srv = BatchedServer(cfg, params=params, device="cuda")
     prompts = serve_prompts(cfg)
     srv.generate(prompts[:, :64], 2)                      # warm-up
@@ -699,7 +786,9 @@ def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
           f"attention_impl={cfg.attention_impl}): generate {SERVE_BATCH} x "
           f"{SERVE_PROMPT} prompt tokens + {SERVE_GEN} new: wall {wall!r} s, "
           f"{toks.size / wall!r} generated tokens/s; prefill {prefill_ms!r} "
-          f"ms, decode {sum(decode_ms) / len(decode_ms)!r} ms/token "
+          f"ms (with the first kernels: "
+          f"{FIRST_FORM_PREFILL_MS[cfg.name]} ms), decode "
+          f"{sum(decode_ms) / len(decode_ms)!r} ms/token "
           f"(CUDA events around each model call, {len(decode_ms)} steps); "
           f"kernel launches {launches} ({cfg.num_layers} layers); peak "
           f"memory {peak / 2 ** 30!r} GiB; first row {toks[0][:8].tolist()}",
@@ -710,6 +799,7 @@ def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
                          prompts)
     assert counter.launches == counted, "the plain route launched a kernel"
     compare_routes(f"serve {cfg.name}", auto, ref)
+    profile_prefill(srv, prompts)
     profile_decode(srv, prompts)
     return srv, prompts, toks, launches
 

@@ -6,9 +6,10 @@ library with a plain C interface, which ``ctypes`` loads:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o .kernel_build/cuda/<name>-<key>.so
 
-- ``<key>`` hashes the source, the ``nvcc`` version and the flags, so an
-  edited source or another toolkit builds anew and an unchanged one loads
-  the library already there;
+- ``<key>`` hashes the source, every shared header ``csrc/*.cuh`` (the
+  sources include ``sm90.cuh``), the ``nvcc`` version and the flags, so
+  an edited source or header or another toolkit builds anew and an
+  unchanged one loads the library already there;
 - the compiler writes to a temporary name that is renamed into place, so
   a second process never loads a half-written library;
 - ``ptxas``'s report (registers, shared memory and spills per kernel) is
@@ -61,6 +62,9 @@ def _nvcc_version(nvcc: str) -> str:
 def library_path(name: str, nvcc: str) -> pathlib.Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(_nvcc_version(nvcc).encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -4,8 +4,13 @@
 
 ``flash_attention_cuda`` checks its tensors, allocates the output and
 launches the kernel on the current stream; ``flash_attention_cuda.
-launches`` counts its launches. The kernel has no backward (neither has
-the TPU kernel it replaces), so a call that would need a gradient raises.
+launches`` counts its launches. The dtype picks the kernel: bf16 runs
+the tensor-core form (wgmma fed by TMA), f32 the CUDA-core form. TMA
+reads bf16 tiles straight from the caller's strides, so for bf16 the
+base and every stride of a dimension longer than 1 must be a multiple of
+16 bytes (the wrapper raises otherwise; nothing is copied). The kernel
+has no backward (neither has the TPU kernel it replaces), so a call that
+would need a gradient raises.
 """
 from __future__ import annotations
 
@@ -61,10 +66,23 @@ def _check(q, k, v, causal):
         if sum((n - 1) * s for n, s in zip(t.shape, t.stride())) >= _INT31:
             raise ValueError(f"flash_attention_cuda: {name} exceeds the "
                              "kernel's int32 strides")
+        if t.dtype == torch.bfloat16:
+            _check_tma(name, t)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention_cuda has no backward (nor has "
                            "the TPU kernel it replaces); call it under "
                            "torch.no_grad() or torch.inference_mode()")
+
+
+def _check_tma(name, t):
+    """TMA's rule for a bf16 tensor it reads: a 16-byte aligned base and
+    16-byte strides (8 elements) in every dimension longer than 1."""
+    if t.data_ptr() % 16 or any(s % 8 for n, s in
+                                zip(t.shape[:3], t.stride()[:3]) if n > 1):
+        raise ValueError(f"flash_attention_cuda: bf16 {name} needs a "
+                         f"16-byte aligned base and strides for TMA, got "
+                         f"strides {t.stride()} at offset "
+                         f"{t.data_ptr() % 16} mod 16")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):

@@ -5,10 +5,14 @@ Chunked SSD (arXiv:2405.21060): within a chunk the recurrence is a masked
 quadratic, attention-like product; across chunks a cheap loop carries the
 (heads, state, head_dim) state. The intra-chunk step is K3
 (``kernels/ssd_scan``, the CUDA kernel on CUDA tensors), which the JAX
-package documents as the drop-in for its XLA ``ssd_chunked``. K3 reads
-X, B and C as f32, where the JAX XLA path forms ``C B^T`` in the
-activation dtype; the two agree at f32 rounding in the f32 variant of a
-config. K3 has no backward: a training step through it raises on CUDA.
+package documents as the drop-in for its XLA ``ssd_chunked``. It takes
+the per-group B and C projections as they come out of the conv (views,
+never repeated over a group's heads). In f32, K3 reads X, B and C as
+f32, where the JAX XLA path forms ``C B^T`` in the activation dtype; the
+two agree at f32 rounding in the f32 variant of a config. In bf16 the
+CUDA kernel runs its products on the tensor cores and rounds G o M, dt X
+and B exp(cum_Q - cum) to bf16 (``ref.ssd_intra_chunk_ref_bf16``). K3 has
+no backward: a training step through it raises on CUDA.
 
 Decode is the O(1)-per-token recurrence over the same state. Its conv
 state is f32 (``init_ssm_state``), so, as in JAX, the decode conv and X
@@ -73,7 +77,8 @@ def ssd_chunked(X, dtv, A, Bh, Ch, chunk: int, init_state=None, *,
     K3 wrapper and slices the padding off.
 
     X: (B, S, nh, p); dtv: (B, S, nh) softplus'd; A: (nh,) negative;
-    Bh/Ch: (B, S, nh, s). Returns y (B, S, nh, p) in X's dtype and the
+    Bh/Ch: (B, S, g, s), shared by the nh / g heads of a group (g = nh:
+    per head). Returns y (B, S, nh, p) in X's dtype and the
     final state (B, nh, s, p) f32."""
     S = X.shape[1]
     pad = (-S) % chunk
@@ -83,12 +88,6 @@ def ssd_chunked(X, dtv, A, Bh, Ch, chunk: int, init_state=None, *,
     y, final = ssd_chunked_kernel(X, dtv, A, Bh, Ch, chunk, init_state,
                                   kernel=kernel)
     return y[:, :S], final
-
-
-def _heads(t, B_, S, g, s, hpg):
-    """(B, S, g*s) group projections -> (B, S, nh, s), each group repeated
-    over its hpg heads (``jnp.repeat`` on the group axis)."""
-    return torch.repeat_interleave(t.reshape(B_, S, g, s), hpg, dim=2)
 
 
 def ssm_block(x, p, cfg, state=None, *, kernel: str = "auto"):
@@ -109,11 +108,12 @@ def ssm_block(x, p, cfg, state=None, *, kernel: str = "auto"):
     dtv = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     X = xin.reshape(B_, S, nh, ph)
-    hpg = nh // g
-    Bh, Ch = _heads(Bp, B_, S, g, s, hpg), _heads(Cp, B_, S, g, s, hpg)
+    # the group projections as views (B, S, g, s): K3 reads each group's
+    # B and C once for its nh / g heads
+    Bg, Cg = Bp.reshape(B_, S, g, s), Cp.reshape(B_, S, g, s)
 
     init_state = state["ssd"] if state is not None else None
-    y, final = ssd_chunked(X, dtv, A, Bh, Ch, cfg.ssm_chunk, init_state,
+    y, final = ssd_chunked(X, dtv, A, Bg, Cg, cfg.ssm_chunk, init_state,
                            kernel=kernel)
     y = y + p["D_skip"].to(x.dtype)[None, None, :, None] * X
     y = y.reshape(B_, S, di)

@@ -6,10 +6,16 @@ tests/test_torch_cuda.py``. Without a card every case skips. Bounds are
 those of ``tests/test_kernels.py``: for K1, rtol 1e-6 / atol 1e-6 on
 ``mixed``, atol 1e-6 * (max|v'| + 1) on ``v'`` (the implied step
 cancels); for K2, rtol 1e-6 / atol 1e-6 on theta' and v'; rtol 1e-5 on
-the sum of squares of both; for K4, 2e-5 in f32 and 2e-2 in bf16; for
-K3, 1e-4 (f32 sums of up to chunk x state products in another order than
-the plain version's), with atol scaled by max(1, max|ref|) at the serving
-shape, whose outputs reach ~40."""
+the sum of squares of both; for K4, 2e-5 in f32 and 2e-2 in bf16 (the
+bf16 kernel rounds P to bf16 before P V); for K3 in f32, 1e-4 (f32 sums
+of up to chunk x state products in another order than the plain
+version's). The bf16 K3 rounds G o M, dt X and B exp(cum_Q - cum) to
+bf16: it is held against ``ssd_intra_chunk_ref_bf16``, which rounds the
+same operands, at 1e-4 x max(1, max|ref|) plus ``bf16_rounding_slack``
+(one bf16 step where a product of G's f32 sum, taken in another order on
+the tensor cores, lies on a rounding boundary), and against the unrounded
+``ssd_intra_chunk_ref`` at ``bf16_bound`` (derived from bf16's unit
+roundoff and the sums' lengths)."""
 import numpy as np
 import pytest
 
@@ -18,12 +24,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.server import AsyncParameterServer  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention, flash_attention_cuda)
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.fused_update import (  # noqa: E402
     fused_apply_flat, fused_apply_flat_ref, fused_apply_triton,
     fused_momentum_gap_update, fused_update_flat, fused_update_flat_ref,
     fused_update_triton)
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_chunked, ssd_chunked_ref, ssd_intra_chunk_cuda, ssd_intra_chunk_ref)
+    bf16_bound, bf16_rounding_slack, ssd_chunked, ssd_chunked_ref,
+    ssd_intra_chunk_cuda, ssd_intra_chunk_ref, ssd_intra_chunk_ref_bf16)
 
 WEIGHTS = (1.0, 0.6, 0.05)
 BETA_ETA = ((0.9, 0.01), (0.0, 0.5), (0.99, 1e-4))
@@ -164,6 +173,31 @@ def test_k4_reads_strided_layouts_and_counts_launches(cuda_device):
         flash_attention(q.requires_grad_(True), k, v, kernel="cuda")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("S", (70, 165))
+def test_k4_bf16_reads_strided_cache_views(cuda_device, d, S):
+    """The model's prefill call: q a (B, S, H, d) activation and k/v the
+    first S slots of a (B, Smax, KV, d) bf16 cache, all as (B, heads, S,
+    d) views that TMA reads in place."""
+    rng = np.random.default_rng(d + S)
+    B, H, KV, Smax = 2, 8, 2, 200
+    q = _normal(rng, (B, S, H, d), cuda_device, torch.bfloat16)
+    cache = [_normal(rng, (B, Smax, KV, d), cuda_device, torch.bfloat16)
+             for _ in "kv"]
+    q4, k4, v4 = (t.transpose(1, 2) for t in
+                  (q, cache[0][:, :S], cache[1][:, :S]))
+    for causal in (True, False):
+        out = flash_attention(q4, k4, v4, causal=causal, kernel="cuda")
+        assert out.stride() == q4.stride()
+        _assert_close(out, attention_ref(q4, k4, v4, causal=causal), 2e-2)
+    flat = torch.zeros(B * H * S * d + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(B, H, S, d)       # a 2-byte offset: not for TMA
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted, k4, v4, kernel="cuda")
+
+
 def _ssd_inputs(rng, B, S, nh, ph, s, device, dtype=torch.float32):
     X = _normal(rng, (B, S, nh, ph), device, dtype)
     dtv = torch.nn.functional.softplus(_normal(rng, (B, S, nh), device))
@@ -193,22 +227,94 @@ def test_k3_cuda_kernel_matches_plain_and_recurrence(cuda_device, B, S, nh,
     _assert_close(final, fr, 1e-4)
 
 
+def _check_k3_bf16(args, chunk):
+    """The bf16 K3 on ``args`` (the 4-D form) against the rounded and the
+    unrounded plain versions, at the bounds of the module docstring."""
+    got = ssd_intra_chunk_cuda(*args, chunk=chunk)
+    comp = ssd_intra_chunk_ref_bf16(*args, chunk=chunk)
+    ref = ssd_intra_chunk_ref(*args, chunk=chunk)
+    slack = (bf16_rounding_slack(*args, chunk=chunk), 0.0, 0.0, 0.0)
+    bound = bf16_bound(*args, chunk=chunk)
+    for i, (a, c, r, sl) in enumerate(zip(got, comp, ref, slack)):
+        assert torch.isfinite(a).all()
+        tol = 1e-4 * max(1.0, float(c.abs().max()))
+        assert bool(torch.all((a - c).abs() <= tol + sl)), (
+            i, float((a - c).abs().max()), tol)
+        if i < 2:
+            assert bool(torch.all((a - r).abs() <= bound[i])), i
+        else:
+            _assert_close(a, r, 1e-4)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_head", (False, True))
+@pytest.mark.parametrize("B,S,nh,ph,s,chunk", SSD_SHAPES)
+def test_k3_bf16_kernel_matches_rounded_plain(cuda_device, B, S, nh, ph, s,
+                                              chunk, per_head):
+    """The bf16 K3 at the TestSSDScan shapes on the model's views: X
+    (B, S, nh, ph) and B/C (B, S, g, s) moved to (B, heads, S, .) without
+    a copy, one group (Mamba2's) or one per head."""
+    rng = np.random.default_rng(B + S + nh + per_head)
+    g = nh if per_head else 1
+    X, dtv, A, _, _ = _ssd_inputs(rng, B, S, nh, ph, s, cuda_device,
+                                  torch.bfloat16)
+    Bg, Cg = (_normal(rng, (B, S, g, s), cuda_device, torch.bfloat16, 0.5)
+              for _ in "BC")
+    before = ssd_intra_chunk_cuda.launches
+    _check_k3_bf16((X.movedim(2, 1), dtv.movedim(2, 1), A,
+                    Bg.movedim(2, 1), Cg.movedim(2, 1)), chunk)
+    assert ssd_intra_chunk_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", (1, 2))
+def test_k3_f32_group_shared_matches_recurrence(cuda_device, g):
+    """The f32 K3 reads a group's B and C for its heads: the scan equals
+    the sequential recurrence on B and C repeated over the heads."""
+    rng = np.random.default_rng(g)
+    B, S, nh, ph, s = 2, 64, 4, 16, 32
+    X, dtv, A, _, _ = _ssd_inputs(rng, B, S, nh, ph, s, cuda_device)
+    Bg, Cg = (_normal(rng, (B, S, g, s), cuda_device, scale=0.5)
+              for _ in "BC")
+    y, final = ssd_chunked(X, dtv, A, Bg, Cg, 16, kernel="cuda")
+    yr, fr = ssd_chunked_ref(X, dtv, A,
+                             *(t.repeat_interleave(nh // g, dim=2)
+                               for t in (Bg, Cg)))
+    _assert_close(y, yr, 1e-4)
+    _assert_close(final, fr, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_k3_f32_long_chunk_matches_recurrence(cuda_device, seed):
+    """A 256-step chunk (S = 300, padded to 512 by the model's
+    ssd_chunked) in f32: cum reaches ~-200, where an f32 scan moves
+    exp(cum_t - cum_u) by ~1e-4; the kernel takes cum in f64 and holds
+    the sequential recurrence at 1e-4."""
+    X, dtv, A, Bh, Ch = _ssd_inputs(np.random.default_rng(seed), 1, 300, 4,
+                                    64, 128, cuda_device)
+    y, final = ssm.ssd_chunked(X, dtv, A, Bh, Ch, 256, kernel="cuda")
+    yr, fr = ssd_chunked_ref(X, dtv, A, Bh, Ch)
+    _assert_close(y, yr, 1e-4)
+    _assert_close(final, fr, 1e-4)
+
+
 @pytest.mark.cuda
 def test_k3_serving_shape_bf16_and_continuation(cuda_device):
     rng = np.random.default_rng(7)
-    # Mamba2-370m's prefill: batch 8 x 32 heads, 512 tokens, chunk 256
-    BH, S, ph, s, Q = 256, 512, 64, 128, 256
-    X = _normal(rng, (BH, S, ph), cuda_device, torch.bfloat16)
-    dtv = torch.nn.functional.softplus(_normal(rng, (BH, S), cuda_device))
-    A = -torch.linspace(1.0, 16.0, 32, device=cuda_device).repeat(8)
-    Bh, Ch = (_normal(rng, (BH, S, s), cuda_device, torch.bfloat16, 0.5)
+    # Mamba2-370m's prefill: batch 8 x 32 heads of one group, 512 tokens,
+    # chunk 256, on the model's (B, S, heads, .) layout
+    B, S, nh, ph, s, Q = 8, 512, 32, 64, 128, 256
+    X = _normal(rng, (B, S, nh, ph), cuda_device, torch.bfloat16)
+    dtv = torch.nn.functional.softplus(_normal(rng, (B, S, nh), cuda_device))
+    A = -torch.linspace(1.0, 16.0, nh, device=cuda_device)
+    Bg, Cg = (_normal(rng, (B, S, 1, s), cuda_device, torch.bfloat16, 0.5)
               for _ in "BC")
     before = ssd_intra_chunk_cuda.launches
-    got = ssd_intra_chunk_cuda(X, dtv, A, Bh, Ch, chunk=Q)
+    _check_k3_bf16((X.movedim(2, 1), dtv.movedim(2, 1), A,
+                    Bg.movedim(2, 1), Cg.movedim(2, 1)), Q)
     assert ssd_intra_chunk_cuda.launches == before + 1
-    for a, b in zip(got, ssd_intra_chunk_ref(X, dtv, A, Bh, Ch, chunk=Q)):
-        assert torch.isfinite(a).all()
-        _assert_close(a, b, 1e-4, scaled=True)
     # prefill continuation: two halves with the state carried == one call
     X, dtv, A, Bh, Ch = _ssd_inputs(rng, 1, 64, 2, 8, 16, cuda_device)
     y_all, f_all = ssd_chunked(X, dtv, A, Bh, Ch, 16)

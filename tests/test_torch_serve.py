@@ -155,6 +155,24 @@ def test_f32_prefill_and_decode_match_jax(arch):
             _close(a, b)
 
 
+@pytest.mark.parametrize("groups", (2, 4))
+def test_mamba2_grouped_prefill_and_decode_match_jax(groups):
+    """Mamba2 with its 8 SSD heads in 2 or 4 groups: the port passes each
+    group's B and C projections to K3 (never repeated over the group's
+    heads, which JAX's ``jnp.repeat`` does); prefill, cache leaves and
+    three decode steps at the same bounds as above."""
+    cfg = dataclasses.replace(_f32(get_smoke_config("mamba2-370m")),
+                              ssm_ngroups=groups)
+    jp = _jax_params(cfg)
+    tokens = _prompts(cfg, seed=groups)
+    theirs = _jax_run(cfg, jp, tokens, 3, S + 4)
+    ours = _port_run(cfg, params_from_jax(jp, "cpu"), tokens, 3, S + 4)
+    for (jl, jc), (tl, tc, _) in zip(theirs, ours):
+        _close(tl, jl)
+        for a, b in zip(tc, jax.tree.leaves(jc["layers"])):
+            _close(a, b)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_tokens_equal_jax(arch):
     cfg = _f32(get_smoke_config(arch))
