@@ -1,9 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the K1 and K2
 Triton kernels and the K3 and K4 CUDA C++ kernels (an f32 form on the
 CUDA cores and a bf16 form on the tensor cores, wgmma fed by TMA, each)
-from this checkout and holds each against its plain version; drives the
-paper's main path (online-scheduled async LeNet-5 training) on the card
-and checks it against the immediate baseline and a CPU run; drives the
+from this checkout and holds each against its plain version (K1, which
+applies a chunk of up to 16 pushes in one launch, also against chained
+one-push launches bit for bit); drives the paper's main path
+(online-scheduled async LeNet-5 training, one K1 launch a finisher chunk)
+on the card and checks it against the immediate baseline and a CPU run;
+drives the
 async federated LM trainer at Qwen3-0.6B's full width (596,049,920
 parameters, K2 on every island step, K1 on every push), holds one
 full-width train step's K2 epilogue against the plain version and
@@ -43,6 +46,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # the Table II devices, one simulated hour
 MAIN = dict(n_users=25, horizon_s=3600, V=5.0, app_arrival_p=0.004, seed=0)
 K1_SIZES = (0, 1, 1029, 62006, 2 ** 24 + 17)
+K1_COHORT_K = (1, 2, 5, 16)     # pushes a launch: 16 is a full LeNet chunk
 K1_WEIGHTS = (1.0, 0.6, 0.05)
 K1_BETA_ETA = ((0.9, 0.01), (0.0, 0.5), (0.99, 1e-4))
 LENET_N = 62006
@@ -125,50 +129,135 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_k1(fused_apply_flat, bound_ms):
-    """K1 (Triton) against its plain version on the same CUDA tensors, at
-    the reference's bounds (tests/test_kernels.py): mixed at rtol 1e-6 /
-    atol 1e-6; v' at rtol 1e-6 / atol 1e-6 * (max|v'| + 1), because
-    (cur - mixed) * inv_eta cancels; Sum(v'^2) at rtol 1e-5."""
+def check_cohort(out, ref):
+    """One K1 result against its plain version at the reference's bounds
+    (tests/test_kernels.py): p' at rtol 1e-6 / atol 1e-6; v' at rtol 1e-6
+    / atol 1e-6 * (max|v'| + 1), because (cur - mixed) * inv_eta cancels;
+    the sums of squares and norms at rtol 1e-5. Returns max |p' - ref|,
+    |v' - ref|."""
+    (p2, v2, sums, norms), (pr, vr, sr, nr) = (
+        [x.cpu().numpy() for x in o] for o in (out, ref))
+    np.testing.assert_allclose(p2, pr, rtol=1e-6, atol=1e-6)
+    v_scale = float(np.max(np.abs(vr), initial=0.0)) + 1.0
+    np.testing.assert_allclose(v2, vr, rtol=1e-6, atol=1e-6 * v_scale)
+    np.testing.assert_allclose(sums, sr, rtol=1e-5, atol=1e-10)
+    np.testing.assert_allclose(norms, nr, rtol=1e-5, atol=1e-10)
+    if p2.size == 0:
+        return 0.0
+    return max(float(np.max(np.abs(p2 - pr))), float(np.max(np.abs(v2 - vr))))
+
+
+def chained_single_pushes(fused_apply_cohort, cur, v, trained, w):
+    """The k pushes as k one-push K1 launches: (p', v', sums, norms) with
+    sums/norms gathered as the k-push launch returns them."""
+    p, vv, sums, norms = cur, v, [], []
+    for j in range(trained.shape[0]):
+        p, vv, s1, n1 = fused_apply_cohort(
+            p, vv, trained[j:j + 1], None if w is None else w[j:j + 1],
+            100.0, 0.9, kernel="triton")
+        sums.append(s1[0])
+        norms.append(n1[0])
+    return p, vv, torch.stack(sums + [s1[1]]), torch.stack(norms + [n1[1]])
+
+
+def empty_launch_ms(iters):
+    """One launch of an empty Triton kernel (one pointer argument), timed
+    like K1: the floor of a Triton launch on this host."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def empty_kernel(x_ptr):
+        if tl.program_id(0) < 0:
+            tl.store(x_ptr, 0.0)
+
+    x = torch.zeros(1, device="cuda")
+    return time_ms(lambda: empty_kernel[(1,)](x), iters)
+
+
+def phase_k1(fu, cohort_bytes, ticket_counter):
+    """K1 (Triton) against its plain version on the same CUDA tensors: one
+    push (``fused_apply_flat``) at every K1_SIZES x weight x (beta, eta),
+    then chunks of k in K1_COHORT_K pushes at every size with weights of 1
+    (the cached ones) and a mixed weight vector, each also against k
+    one-push launches bit for bit (norms included); 100 repeated launches
+    give the same bits and leave the ticket counter at 0. Then times by
+    CUDA events: a chunk of 1 and of 16 pushes at LeNet's size, one push
+    at 2^24+17 and at the LM's size, the plain version beside each, and
+    an empty Triton launch."""
     max_err = 0.0
     for n in K1_SIZES:
         cur, v, new = k1_inputs(n, n, "cuda")
         for w in K1_WEIGHTS:
             for beta, eta in K1_BETA_ETA:
-                inv_eta = 1.0 / eta
-                m, v2, sq = fused_apply_flat(cur, v, new, w, inv_eta, beta,
-                                             kernel="triton")
-                mr, vr, sqr = fused_apply_flat(cur, v, new, w, inv_eta,
-                                               beta, kernel="reference")
-                torch.cuda.synchronize()
-                m, v2, mr, vr = (x.cpu().numpy() for x in (m, v2, mr, vr))
-                np.testing.assert_allclose(m, mr, rtol=1e-6, atol=1e-6)
-                v_scale = float(np.max(np.abs(vr), initial=0.0)) + 1.0
-                np.testing.assert_allclose(v2, vr, rtol=1e-6,
-                                           atol=1e-6 * v_scale)
-                np.testing.assert_allclose(float(sq), float(sqr),
-                                           rtol=1e-5, atol=1e-10)
-                if n:
-                    max_err = max(max_err, float(np.max(np.abs(m - mr))),
-                                  float(np.max(np.abs(v2 - vr))))
-        print(f"K1 n={n}: {len(K1_WEIGHTS) * len(K1_BETA_ETA)} cases "
-              f"match the plain version", flush=True)
-    times = {}
-    for n in (LENET_N, 2 ** 24 + 17, QWEN_N):
-        cur, v, new = (k1_inputs(n, 1, "cuda") if n < QWEN_N
-                       else dev_inputs(n, 1))
-        iters = {LENET_N: 2000, QWEN_N: 20}.get(n, 100)
-        ms = time_ms(lambda: fused_apply_flat(cur, v, new, 1.0, 100.0, 0.9,
-                                              kernel="triton"), iters)
-        plain = time_ms(lambda: fused_apply_flat(cur, v, new, 1.0, 100.0,
-                                                 0.9, kernel="reference"),
-                        iters)
-        times[n] = (ms, plain, bound_ms(n))
-        print(f"K1 n={n}: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
-              f"bound {bound_ms(n):.6f} ms (20 B/element at 3.35 TB/s)",
-              flush=True)
-        del cur, v, new
+                out = fu.fused_apply_flat(cur, v, new, w, 1.0 / eta, beta,
+                                          kernel="triton")
+                ref = fu.fused_apply_flat(cur, v, new, w, 1.0 / eta, beta,
+                                          kernel="reference")
+                max_err = max(max_err, check_cohort(out + (out[2],),
+                                                    ref + (ref[2],)))
+        print(f"K1 n={n}: {len(K1_WEIGHTS) * len(K1_BETA_ETA)} one-push "
+              f"cases match the plain version", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for n in K1_SIZES:
+        cur, v = (torch.randn(n, generator=gen, device="cuda")
+                  for _ in range(2))
+        trained = torch.randn((max(K1_COHORT_K), n), generator=gen,
+                              device="cuda")
+        mixed = 0.05 + 0.95 * torch.rand(max(K1_COHORT_K), generator=gen,
+                                         device="cuda")
+        for k in K1_COHORT_K:
+            for w in (None, mixed[:k]):
+                args = (cur, v, trained[:k].contiguous(), w, 100.0, 0.9)
+                out = fu.fused_apply_cohort(*args, kernel="triton")
+                ref = fu.fused_apply_cohort(*args, kernel="reference")
+                max_err = max(max_err, check_cohort(out, ref))
+                single = chained_single_pushes(fu.fused_apply_cohort,
+                                               *args[:4])
+                assert all(torch.equal(a, b) for a, b in zip(out, single)), \
+                    (n, k, w is None)
+        print(f"K1 n={n}: chunks of {K1_COHORT_K} pushes, weights 1 and "
+              f"mixed, match the plain version and equal as many one-push "
+              f"launches bit for bit, norms included", flush=True)
+        del cur, v, trained
+    for n, k in ((LENET_N, 16), (2 ** 24 + 17, 1)):
+        cur, v = (torch.randn(n, generator=gen, device="cuda")
+                  for _ in range(2))
+        trained = torch.randn((k, n), generator=gen, device="cuda")
+        w = 0.05 + 0.95 * torch.rand(k, generator=gen, device="cuda")
+        first = fu.fused_apply_cohort(cur, v, trained, w, 100.0, 0.9,
+                                      kernel="triton")
+        for _ in range(100):
+            again = fu.fused_apply_cohort(cur, v, trained, w, 100.0, 0.9,
+                                          kernel="triton")
+            assert all(torch.equal(a, b) for a, b in zip(first, again)), n
+        torch.cuda.synchronize()
+        assert int(ticket_counter("cuda")) == 0
+        print(f"K1 n={n} k={k}: 100 repeated launches give the same bits; "
+              f"the ticket counter is back at 0", flush=True)
     torch.cuda.empty_cache()
+    times = {}
+    for n, k, iters in ((LENET_N, 1, 2000), (LENET_N, 16, 2000),
+                        (2 ** 24 + 17, 1, 100), (QWEN_N, 1, 20)):
+        cur, v = (torch.randn(n, generator=gen, device="cuda")
+                  for _ in range(2))
+        trained = torch.randn((k, n), generator=gen, device="cuda")
+        args = (cur, v, trained, None, 100.0, 0.9)
+        ms = time_ms(lambda: fu.fused_apply_cohort(*args, kernel="triton"),
+                     iters)
+        plain = time_ms(lambda: fu.fused_apply_cohort(
+            *args, kernel="reference"), max(iters // 10, 5))
+        bound = cohort_bytes(n, k) / HBM_BPS * 1e3
+        times[n, k] = (ms, plain, bound)
+        print(f"K1 n={n} k={k}: kernel {ms:.6f} ms a launch "
+              f"({ms / k:.6f} ms a push), plain {plain:.6f} ms, bound "
+              f"{bound:.6f} ms ({cohort_bytes(n, k)} B at 3.35 TB/s; "
+              f"{bound / ms:.1%} of it)", flush=True)
+        del cur, v, trained, args
+        torch.cuda.empty_cache()
+    times["empty"] = empty_launch_ms(5000)
+    print(f"K1: an empty Triton launch (one pointer argument) "
+          f"{times['empty']:.6f} ms, timed the same way", flush=True)
     return max_err, times
 
 
@@ -245,38 +334,57 @@ def _time_calls(obj, name, stats):
         stats[name][1] += time.perf_counter() - t
         return out
 
+    timed.__wrapped__ = fn
     setattr(obj, name, timed)
 
 
 def run_main(Scenario, policy, device, counter):
-    """One run of the main path; returns (result, wall_s, launches). Prints
-    the host seconds spent in the backend's entry points: the cohort
-    finish (local epochs + K1 pushes), the evaluation, and ``v_norm``, the
-    host sync the online policy makes every slot that has waiting users."""
+    """One run of the main path; returns (result, wall_s, launches, pushes,
+    chunks). Prints the host seconds spent in the backend's entry points:
+    the cohort finish (local epochs + K1 pushes), the evaluation, and
+    ``v_norm``, the host sync the online policy makes every slot that has
+    waiting users; and, inside the finish, in the K1 wrapper calls (the
+    push side: one a chunk of at most COHORT_CHUNK finishers)."""
+    from repro_torch.core import realml
     sim = Scenario(policy=policy, ml="lenet", ml_kwargs=dict(device=device),
                    **MAIN).build()
+    backend = sim.ml_backend
     stats = {}
     for name in ("finish_async_batch", "evaluate", "v_norm"):
-        _time_calls(sim.ml_backend, name, stats)
+        _time_calls(backend, name, stats)
+    _time_calls(realml, "fused_apply_cohort", stats)
+    finish = backend.finish_async_batch
+    chunks = [0]
+
+    def counted(uids, *a, **k):
+        chunks[0] += -(-len(uids) // backend.COHORT_CHUNK)
+        return finish(uids, *a, **k)
+
+    backend.finish_async_batch = counted
     if device == "cuda":
         torch.cuda.synchronize()
-    counter.launches = 0
+    counter.launches = counter.pushes = 0
     t0 = time.perf_counter()
-    res = sim.run()
+    try:
+        res = sim.run()
+    finally:
+        realml.fused_apply_cohort = realml.fused_apply_cohort.__wrapped__
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counter.launches
+    launches, pushes = counter.launches, counter.pushes
     print(f"{policy} on {device}: energy {res.energy_j!r} J, updates "
-          f"{res.updates}, pushes {len(res.push_log)}, K1 launches "
-          f"{launches}, co-run fraction {res.corun_fraction!r}, mean_H "
-          f"{res.mean_H!r}, accuracy {res.accuracy}, wall {wall!r} s, "
+          f"{res.updates}, pushes {len(res.push_log)}, finisher chunks "
+          f"{chunks[0]}, K1 launches {launches} applying {pushes} pushes, "
+          f"co-run fraction {res.corun_fraction!r}, mean_H {res.mean_H!r}, "
+          f"accuracy {res.accuracy}, wall {wall!r} s, "
           f"{res.updates / wall!r} updates/s; host seconds (calls): "
-          + ", ".join(f"{k} {v[1]!r} ({v[0]})" for k, v in stats.items()),
+          + ", ".join(f"{k} {v[1]!r} ({v[0]})" for k, v in stats.items())
+          + " (fused_apply_cohort: the push side of finish_async_batch)",
           flush=True)
     assert np.isfinite(res.energy_j) and res.energy_j > 0
     assert all(0.0 <= a <= 1.0 for _, a in res.accuracy)
-    return res, wall, launches
+    return res, wall, launches, pushes, chunks[0]
 
 
 def profile_main(Scenario, horizon_s):
@@ -299,10 +407,17 @@ def profile_main(Scenario, horizon_s):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_s = sum(r[1] for r in rows) * 1e-6
+    n_kernels = sum(r[2] for r in rows)
+    k1 = [(us, count) for key, us, count in rows
+          if "fused_apply_cohort" in key]
+    copies = sum(count for key, _, count in rows if "DtoH" in key)
     print(f"profile: online, horizon {horizon_s} s, {res.updates} updates, "
           f"wall {wall!r} s (profiled), device busy {busy_s!r} s, idle "
           f"share {1.0 - busy_s / wall!r}, device-side kernel launches "
-          f"{sum(r[2] for r in rows)}", flush=True)
+          f"{n_kernels} ({n_kernels / max(res.updates, 1)!r} per update); "
+          f"K1 {sum(c for _, c in k1)} launches, "
+          f"{sum(u for u, _ in k1) / max(sum(c for _, c in k1), 1)!r} us of "
+          f"device time each; {copies} device-to-host copies", flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"profile:   {us * 1e-3:10.3f} ms  {count:7d}x  {key[:90]}",
               flush=True)
@@ -325,7 +440,7 @@ def run_lm(train, AsyncParameterServer, k1, k2):
         _time_calls(obj, name, stats)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = 0
+    k1.launches = k1.pushes = k2.launches = 0
     t0 = time.perf_counter()
     out = train.run(cfg, icfg, device="cuda",
                     log=lambda m: print(f"LM {m}", flush=True))
@@ -355,7 +470,8 @@ def run_lm(train, AsyncParameterServer, k1, k2):
     assert out["updates"] > 0, "the LM trainer made no update"
     assert out["updates"] == pushes, (out["updates"], pushes)
     assert all(np.isfinite(l) for l in losses), losses
-    assert launches[0] == pushes, (launches[0], pushes)
+    assert launches[0] == pushes == k1.pushes, (launches[0], pushes,
+                                                 k1.pushes)
     assert launches[1] == icfg.local_steps * epochs, (launches[1], epochs)
     return out["params"], cfg, launches
 
@@ -846,15 +962,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          os.path.join(ROOT, ".kernel_build", "triton"))
     from repro_torch.core import AsyncParameterServer, Scenario
-    from repro_torch.kernels.fused_update import (fused_apply_flat,
-                                                  fused_apply_triton,
+    from repro_torch.kernels import fused_update
+    from repro_torch.kernels.fused_update import (fused_apply_triton,
                                                   fused_update_flat,
                                                   fused_update_triton)
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.kernels.fused_update.kernel import (BYTES_PER_ELEMENT,
-                                                         HBM_BYTES_PER_S)
+    from repro_torch.kernels.fused_update.kernel import (
+        BYTES_PER_ELEMENT, HBM_BYTES_PER_S, cohort_bytes, ticket_counter)
     from repro_torch.kernels import _cuda_build, ssd_scan
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_cuda)
@@ -862,8 +980,7 @@ def main() -> int:
     from repro_torch.models import build_model, ssm as ssm_model
     import triton
 
-    def bound_ms(n):    # 3 f32 reads + 2 f32 writes per element + sumsq
-        # (K1 and K2 alike)
+    def bound_ms(n):    # K2: 3 f32 reads + 2 f32 writes an element + sumsq
         return (BYTES_PER_ELEMENT * n + 4) / HBM_BYTES_PER_S * 1e3
 
     # ---- 1. environment --------------------------------------------------
@@ -890,16 +1007,17 @@ def main() -> int:
 
     # ---- 2. K1 against its plain version ---------------------------------
     t = time.perf_counter()
-    max_err, times = phase_k1(fused_apply_flat, bound_ms)
+    max_err, times = phase_k1(fused_update, cohort_bytes, ticket_counter)
     print(f"K1 phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 3. the main path on the card ------------------------------------
     t = time.perf_counter()
-    online, wall, launches = run_main(Scenario, "online", "cuda",
-                                      fused_apply_triton)
+    online, wall, launches, pushes, chunks = run_main(
+        Scenario, "online", "cuda", fused_apply_triton)
     assert online.updates > 0, "the online policy made no update"
-    assert launches == len(online.push_log) == online.updates, \
-        (launches, len(online.push_log), online.updates)
+    assert launches == chunks, (launches, chunks)
+    assert pushes == len(online.push_log) == online.updates, \
+        (pushes, len(online.push_log), online.updates)
     print(f"main path phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
@@ -908,18 +1026,19 @@ def main() -> int:
 
     # ---- 4. the immediate baseline ----------------------------------------
     t = time.perf_counter()
-    immediate, _, imm_launches = run_main(Scenario, "immediate", "cuda",
-                                          fused_apply_triton)
-    assert imm_launches == immediate.updates > 0
+    immediate, _, imm_launches, imm_pushes, imm_chunks = run_main(
+        Scenario, "immediate", "cuda", fused_apply_triton)
+    assert imm_launches == imm_chunks
+    assert imm_pushes == immediate.updates > 0
     saving = 1.0 - online.energy_j / immediate.energy_j
     print(f"online vs immediate: energy saving {saving!r}", flush=True)
     print(f"immediate phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 5. the same online run on the CPU --------------------------------
     t = time.perf_counter()
-    cpu, _, cpu_launches = run_main(Scenario, "online", "cpu",
-                                    fused_apply_triton)
-    assert cpu_launches == 0, "a CPU run launched the CUDA kernel"
+    cpu, _, cpu_launches, cpu_pushes, _ = run_main(
+        Scenario, "online", "cpu", fused_apply_triton)
+    assert cpu_launches == cpu_pushes == 0, "a CPU run launched K1"
     if online.mean_H == 0.0 and cpu.mean_H == 0.0:
         assert schedule_digest(cpu.push_log) == \
             schedule_digest(online.push_log), "CPU/CUDA schedules differ"
@@ -964,20 +1083,26 @@ def main() -> int:
     print(f"serve Mamba2 phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 9. the kernels record ---------------------------------------------
-    ms, plain_ms, b_ms = times[LENET_N]
+    ms, plain_ms, b_ms = times[LENET_N, 1]
     k2_ms, k2_plain, k2_bound, _ = k2_times[QWEN_N]
-    print(f"K1 at the LM's {QWEN_N} parameters: kernel "
-          f"{times[QWEN_N][0]:.6f} ms, plain {times[QWEN_N][1]:.6f} ms, "
-          f"bound {times[QWEN_N][2]:.6f} ms; {lm_launches[0]} launches in "
-          f"the LM run", flush=True)
+    q_ms, q_plain, q_bound = times[QWEN_N, 1]
+    print(f"K1 at the LM's {QWEN_N} parameters: kernel {q_ms:.6f} ms, plain "
+          f"{q_plain:.6f} ms, bound {q_bound:.6f} ms ({q_bound / q_ms:.1%}); "
+          f"{lm_launches[0]} launches in the LM run. K1 at LeNet's "
+          f"{LENET_N}: a chunk of 1 push {ms:.6f} ms, of 16 "
+          f"{times[LENET_N, 16][0]:.6f} ms, an empty Triton launch "
+          f"{times['empty']:.6f} ms; {launches} launches ({chunks} finisher "
+          f"chunks) applied {pushes} pushes in the online run", flush=True)
     print(f"card: {card}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
-        "name": "K1 fused_apply (server push apply + sum of squares)",
+        "name": "K1 fused_apply_cohort (a chunk's server push applies + "
+                "every norm, one launch)",
         "route": "triton",
         "source": "src/repro_torch/kernels/fused_update/kernel.py",
         "replaces": "src/repro/kernels/fused_update/kernel.py:91",
         "launches": launches,
+        "pushes": pushes,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -7,15 +7,16 @@ snapshots, and exposes *batched* entry points that the numpy engine calls
 once per slot cohort: ``pull_batch`` when users start training, then
 ``finish_async_batch`` when a slot's trainers finish — one local epoch for
 the whole cohort at once (``torch.func.vmap`` over the lanes of a
-``grad``, a Python loop over the steps), followed by the pushes applied in
-user order, each ONE launch of the K1 kernel (``kernels/fused_update``).
+``grad``, a Python loop over the steps), followed by the chunk's pushes
+applied in user order by ONE launch of the K1 kernel
+(``kernels/fused_update``).
 
 Parameters are flat f32 vectors (``models/lenet.py``), so the server's
-parameters and momentum are single buffers and each push is one K1 pass
-over the whole model: the mix, the momentum update and Sum(v'^2). The
-pre-push Eq. (4) norm chains through the pushes as ``sqrt`` of the
-previous push's sum of squares; only the first push of a chunk reduces
-``v`` itself.
+parameters and momentum are single buffers and a chunk of pushes is one
+K1 pass over the whole model: each push's mix and momentum update, and
+every norm the finish needs — the entry ``||v||`` and each push's
+post-push norm, so push j's pre-push Eq. (4) norm is norm j and the final
+``||v||`` norm k. No torch operation runs around the launch.
 
 Randomness: the initial parameters come from a ``torch.Generator`` seeded
 with the run seed, and each client's minibatch permutations from its own
@@ -40,7 +41,7 @@ from torch.func import grad, vmap
 
 from ..data.synthetic import cifarlike_dataset, dirichlet_partition
 from ..device import resolve_device
-from ..kernels.fused_update import fused_apply_flat
+from ..kernels.fused_update import KMAX, fused_apply_cohort
 from ..models.lenet import init_lenet, lenet_logits, lenet_loss
 from .aggregation import AggregationRule
 from .server import AsyncParameterServer
@@ -149,17 +150,17 @@ class ImageClassifierBackend(BatchedMLBackend):
     labels)``, ``model_logits(flat, images)``) and a registry ``name``.
 
     Cohorts are processed in chunks of at most ``COHORT_CHUNK`` lanes (a
-    cap on the memory of the batched epoch). PyTorch runs eagerly, so a
-    chunk needs no padding lanes: every lane is a real push, and each
-    push is one K1 launch. A chunk runs as many steps as its longest
-    shard; shorter shards mask their extra steps.
+    cap on the memory of the batched epoch, and K1's ``KMAX``). PyTorch
+    runs eagerly, so a chunk needs no padding lanes: every lane is a real
+    push, and a chunk's pushes are one K1 launch. A chunk runs as many
+    steps as its longest shard; shorter shards mask their extra steps.
     """
 
     model_init: staticmethod
     model_loss: staticmethod
     model_logits: staticmethod
 
-    COHORT_CHUNK = 16   # lanes per batched epoch
+    COHORT_CHUNK = KMAX     # lanes per batched epoch, pushes per K1 launch
     ALPHA = 100.0       # Dirichlet concentration of the client split
     NOISE = 8.0         # cifarlike difficulty (JAX backend's default)
 
@@ -275,24 +276,27 @@ class ImageClassifierBackend(BatchedMLBackend):
         for params, idx, mask in self._cohort_chunks(uids):
             trained = _masked_epoch(params, idx, mask, self._flat_x,
                                     self._flat_y, self.eta, self.beta,
-                                    self.model_loss)
-            sq = torch.sum(v * v)        # once per chunk, then chained
-            for j in range(trained.shape[0]):
-                if need_gaps:
-                    vnorms.append(torch.sqrt(sq))      # the pre-push norm
-                p, v, sq = fused_apply_flat(p, v, trained[j],
-                                            weights[pos + j], inv_eta,
-                                            self.beta, kernel=self.kernel)
-            pos += trained.shape[0]
+                                    self.model_loss).contiguous()
+            k = trained.shape[0]
+            w = weights[pos:pos + k]
+            # weights of 1 (replace) are K1's cached ones: no copy
+            w = None if np.all(w == 1.0) else torch.tensor(
+                w, dtype=torch.float32, device=self.device)
+            p, v, _, norms = fused_apply_cohort(p, v, trained, w, inv_eta,
+                                                self.beta, kernel=self.kernel)
+            if need_gaps:
+                vnorms.append(norms[:k])     # each push's pre-push norm
+            pos += k
         server.params, server._v = p, v
         # a 0-d device tensor; v_norm() converts it when a policy asks
-        server.v_norm = torch.sqrt(sq)
+        server.v_norm = norms[k]
         for uid in uids:
             server.lag_tracker.on_push(int(uid))
             server.in_flight.discard(int(uid))
         if not need_gaps:
             return None, None
-        vn = torch.stack(vnorms).cpu().numpy().astype(np.float64)
+        vn = (vnorms[0] if len(vnorms) == 1 else torch.cat(vnorms))
+        vn = vn.cpu().numpy().astype(np.float64)
         return (np.asarray(gradient_gap(vn, lags, eta, beta), dtype=float),
                 np.array(weights))
 

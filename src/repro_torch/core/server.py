@@ -9,10 +9,10 @@ the version counter. HOW a push is applied is delegated to an
 The server keeps the global momentum-norm estimate that drives the Eq. (4)
 gradient-gap predictions: v <- beta * v + (1-beta) * s with
 s = (theta_old - theta_new) / eta, so only ||v||_2 (a scalar) ever travels
-to clients. Every push is ONE call of the K1 kernel
-(``kernels/fused_update``): the weighted mix, the momentum update and
-Sum(v'^2) in one pass. ``kernel`` picks how K1 runs (see
-``fused_apply_flat``).
+to clients. Every push is ONE launch of the K1 kernel
+(``kernels/fused_update``), a chunk of one push: the weighted mix, the
+momentum update and the new ``||v||`` in one pass. ``kernel`` picks how
+K1 runs (see ``fused_apply_cohort``).
 
 Parameters are a tree of tensors (a flat f32 tensor is a one-leaf tree,
 which is how the LeNet backend keeps them). Each push allocates the new

@@ -1,10 +1,12 @@
 """Public wrappers of the client momentum step (K2) and the server push
-apply (K1): flat tensors and whole trees.
+apply (K1): flat tensors, a chunk of pushes and whole trees.
 
 ``fused_update_flat`` is the one dispatch point of K2 and
-``fused_apply_flat`` that of K1. ``kernel`` (``"auto"``, ``"triton"`` or
-``"reference"``) picks the implementation from the device of the tensors
-it is given, by the rule of ``kernels/mode.py``.
+``fused_apply_cohort`` that of K1: one launch applies a chunk of up to
+``KMAX`` pushes and returns every norm the finish needs.
+``fused_apply_flat`` is its one-push case. ``kernel`` (``"auto"``,
+``"triton"`` or ``"reference"``) picks the implementation from the device
+of the tensors it is given, by the rule of ``kernels/mode.py``.
 
 ``fused_momentum_gap_update`` and ``fused_weighted_apply`` are the tree
 versions (the counterparts of ``repro.kernels.fused_update.ops``'s
@@ -20,8 +22,8 @@ from typing import Any
 import torch
 
 from .. import mode
-from .kernel import fused_apply_triton, fused_update_triton
-from .ref import fused_apply_flat_ref, fused_update_flat_ref
+from .kernel import K1_BLOCK, KMAX, fused_apply_triton, fused_update_triton
+from .ref import fused_apply_cohort_ref, fused_update_flat_ref
 
 KERNEL_MODES = mode.kernel_modes("triton")
 
@@ -54,16 +56,88 @@ def fused_update_flat(theta, v, g, eta, beta, *, kernel="auto"):
     return fused_update_flat_ref(theta, v, g, eta, beta)
 
 
-def fused_apply_flat(cur, v, new, w, inv_eta, beta, *, kernel="auto"):
-    """Server push apply on flat f32 tensors of one size: mix + momentum +
-    sum of squares in one pass. Returns (mixed, v', sumsq), sumsq a 0-d
-    f32 tensor on the inputs' device."""
+def _check_cohort(cur, v, trained, weights):
+    """Raise unless ``cur`` and ``v`` are flat contiguous f32 tensors of N
+    elements on one device (N within the kernel's int32 offsets),
+    ``trained`` a contiguous ``(k, N)`` f32 tensor there with 1 <= k <=
+    KMAX (k = 0 only for N = 0) and ``weights`` None or a ``(k,)`` f32
+    tensor there."""
+    n = cur.numel()
+    for name, t in (("cur", cur), ("v", v)):
+        if t.dtype != torch.float32 or t.dim() != 1 or t.numel() != n \
+                or not t.is_contiguous() or t.device != cur.device:
+            raise ValueError(
+                f"fused_apply_cohort: {name} must be a flat contiguous f32 "
+                f"tensor of {n} elements on {cur.device}; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if n >= 2 ** 31 - K1_BLOCK:
+        raise ValueError(f"fused_apply_cohort: {n} elements exceed the "
+                         "kernel's int32 offsets")
+    if trained.dim() != 2 or trained.shape[1] != n:
+        raise ValueError(
+            f"fused_apply_cohort: trained must be (k, {n}) for cur and v "
+            f"of {n} elements; got {tuple(trained.shape)}")
+    k = trained.shape[0]
+    if k > KMAX or (k == 0 and n > 0):
+        raise ValueError(f"fused_apply_cohort: k = {k} pushes; a launch "
+                         f"applies 1 to {KMAX}")
+    if trained.dtype != torch.float32 or not trained.is_contiguous() \
+            or trained.device != cur.device:
+        raise ValueError(
+            "fused_apply_cohort: trained must be a contiguous f32 tensor on "
+            f"{cur.device}; got {trained.dtype} on {trained.device}, "
+            f"contiguous={trained.is_contiguous()}")
+    if weights is not None and (
+            weights.shape != (k,) or weights.dtype != torch.float32
+            or weights.device != cur.device):
+        raise ValueError(
+            f"fused_apply_cohort: weights must be a ({k},) f32 tensor on "
+            f"{cur.device}; got {weights.dtype} {tuple(weights.shape)} on "
+            f"{weights.device}")
+
+
+def fused_apply_cohort(cur, v, trained, weights, inv_eta, beta, *,
+                       kernel="auto"):
+    """Apply a chunk's k pushes in order — for each row j of ``trained``
+    (``(k, N)``, k <= ``KMAX``) with weight ``weights[j]`` (a ``(k,)`` f32
+    tensor on the inputs' device; None for weights of 1, the ``replace``
+    rule) the mix, the momentum update and its sum of squares — in one
+    K1 launch.
+
+    Returns (p', v', sumsq, norms): p' and v' new flat tensors (the inputs
+    are left as they were), sumsq and norms ``(k + 1,)`` f32 on the
+    inputs' device: the entry momentum's, then each push's post-push sum
+    of squares, and their square roots (norm j is push j's pre-push norm
+    for Eq. 4, norm k the final ``||v||``)."""
+    _check_cohort(cur, v, trained, weights)
     if cur.numel() == 0:
         check_kernel_mode(kernel)
-        return _empty_result(cur, v)
+        k = trained.shape[0]
+        zeros = torch.zeros(k + 1, dtype=torch.float32, device=cur.device)
+        return torch.empty_like(cur), torch.empty_like(v), zeros, \
+            zeros.clone()
     if _use_kernel(kernel, cur):
-        return fused_apply_triton(cur, v, new, w, inv_eta, beta)
-    return fused_apply_flat_ref(cur, v, new, w, inv_eta, beta)
+        return fused_apply_triton(cur, v, trained, weights, inv_eta, beta)
+    return fused_apply_cohort_ref(cur, v, trained, weights, inv_eta, beta)
+
+
+def _apply_one(cur, v, new, w, inv_eta, beta, kernel):
+    """One push (weight ``w``, a number) as a one-row chunk."""
+    w = float(w)
+    weights = None if w == 1.0 else torch.full(
+        (1,), w, dtype=torch.float32, device=cur.device)
+    return fused_apply_cohort(cur, v, new.reshape(1, -1), weights, inv_eta,
+                              beta, kernel=kernel)
+
+
+def fused_apply_flat(cur, v, new, w, inv_eta, beta, *, kernel="auto"):
+    """Server push apply on flat f32 tensors of one size: mix + momentum +
+    sum of squares in one pass (``fused_apply_cohort`` with one push).
+    Returns (mixed, v', sumsq), sumsq a 0-d f32 tensor on the inputs'
+    device."""
+    mixed, v_new, sums, _ = _apply_one(cur, v, new, w, inv_eta, beta,
+                                       kernel)
+    return mixed, v_new, sums[1]
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +200,11 @@ def fused_weighted_apply(params: Any, v: Any, new_params: Any, *, w,
     Returns (mixed_params, new_v, v_norm), v_norm = ||v'||_2 as a 0-d f32
     tensor (callers ``float()`` it when the host needs it)."""
     inv_eta = 1.0 / max(eta, 1e-12)
-    m, v2, sumsq = fused_apply_flat(
+    m, v2, _, norms = _apply_one(
         flatten_concat(params), flatten_concat(v), flatten_concat(new_params),
-        w, inv_eta, beta, kernel=kernel)
+        w, inv_eta, beta, kernel)
     return (split_back(m, params, keep_dtype=True),
-            split_back(v2, params, keep_dtype=False),
-            torch.sqrt(sumsq))
+            split_back(v2, params, keep_dtype=False), norms[1])
 
 
 def fused_momentum_gap_update(params: Any, v: Any, grads: Any, *, eta: float,

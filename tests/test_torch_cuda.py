@@ -5,7 +5,8 @@ only PyTorch, Triton and the CUDA toolkit: ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Without a card every case skips. Bounds are
 those of ``tests/test_kernels.py``: for K1, rtol 1e-6 / atol 1e-6 on
 ``mixed``, atol 1e-6 * (max|v'| + 1) on ``v'`` (the implied step
-cancels); for K2, rtol 1e-6 / atol 1e-6 on theta' and v'; rtol 1e-5 on
+cancels), rtol 1e-5 on the sums of squares and norms; a k-push K1 launch
+equals k one-push launches bit for bit; for K2, rtol 1e-6 / atol 1e-6 on theta' and v'; rtol 1e-5 on
 the sum of squares of both; for K4, 2e-5 in f32 and 2e-2 in bf16 (the
 bf16 kernel rounds P to bf16 before P V); for K3 in f32, 1e-4 (f32 sums
 of up to chunk x state products in another order than the plain
@@ -26,9 +27,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.fused_update import (  # noqa: E402
-    fused_apply_flat, fused_apply_flat_ref, fused_apply_triton,
-    fused_momentum_gap_update, fused_update_flat, fused_update_flat_ref,
-    fused_update_triton)
+    fused_apply_cohort, fused_apply_cohort_ref, fused_apply_flat,
+    fused_apply_flat_ref, fused_apply_triton, fused_momentum_gap_update,
+    fused_update_flat, fused_update_flat_ref, fused_update_triton)
+from repro_torch.kernels.fused_update.kernel import (  # noqa: E402
+    ticket_counter)
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     bf16_bound, bf16_rounding_slack, ssd_chunked, ssd_chunked_ref,
@@ -86,6 +89,119 @@ def test_default_server_lives_on_cuda(cuda_device):
     assert fused_apply_triton.launches == before + 1
     assert server.v_norm == pytest.approx(
         float(torch.linalg.vector_norm(torch.full((300,), 10.0))), rel=1e-6)
+
+
+def _cohort(n, k, seed, device, mixed=True):
+    """cur, v, trained (k, n) and weights (k,) — or None — on ``device``."""
+    rng = np.random.default_rng(seed)
+    cur, v = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+              .to(device) for _ in range(2))
+    trained = torch.from_numpy(
+        rng.standard_normal((k, n)).astype(np.float32)).to(device)
+    w = torch.from_numpy(rng.uniform(0.05, 1.0, k).astype(np.float32))
+    return cur, v, trained, w.to(device) if mixed else None
+
+
+def _assert_cohort_close(out, ref):
+    (p2, v2, sums, norms), (pr, vr, sr, nr) = (
+        [x.cpu().numpy() for x in o] for o in (out, ref))
+    np.testing.assert_allclose(p2, pr, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        v2, vr, rtol=1e-6,
+        atol=1e-6 * (float(np.abs(vr).max(initial=0.0)) + 1.0))
+    np.testing.assert_allclose(sums, sr, rtol=1e-5, atol=1e-10)
+    np.testing.assert_allclose(norms, nr, rtol=1e-5, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", (False, True))
+@pytest.mark.parametrize("n", (1, 1029, 62006, 2 ** 20 + 3))
+@pytest.mark.parametrize("k", (1, 2, 5, 16))
+def test_k1_cohort_matches_plain(cuda_device, k, n, mixed):
+    cur, v, trained, w = _cohort(n, k, k + n, cuda_device, mixed)
+    for beta, eta in BETA_ETA:
+        out = fused_apply_cohort(cur, v, trained, w, 1.0 / eta, beta,
+                                 kernel="triton")
+        assert out[2].shape == out[3].shape == (k + 1,)
+        _assert_cohort_close(out, fused_apply_cohort_ref(
+            cur, v, trained, w, 1.0 / eta, beta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1029, 62006, 2 ** 20 + 3))
+@pytest.mark.parametrize("k", (2, 5, 16))
+def test_k1_cohort_equals_single_pushes_bitwise(cuda_device, k, n):
+    cur, v, trained, w = _cohort(n, k, n - k, cuda_device)
+    p2, v2, sums, norms = fused_apply_cohort(cur, v, trained, w, 100.0, 0.9,
+                                             kernel="triton")
+    p, vv, chain_sums, chain_norms = cur, v, [], []
+    for j in range(k):
+        p, vv, s1, n1 = fused_apply_cohort(p, vv, trained[j:j + 1],
+                                           w[j:j + 1], 100.0, 0.9,
+                                           kernel="triton")
+        chain_sums.append(s1[0])
+        chain_norms.append(n1[0])
+    chain_sums.append(s1[1])
+    chain_norms.append(n1[1])
+    assert torch.equal(p2, p) and torch.equal(v2, vv)
+    assert torch.equal(sums, torch.stack(chain_sums))
+    assert torch.equal(norms, torch.stack(chain_norms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", ((62006, 16), (2 ** 20 + 3, 1)))
+def test_k1_cohort_repeats_bitwise_and_resets_its_ticket(cuda_device, n, k):
+    cur, v, trained, w = _cohort(n, k, 5, cuda_device)
+    first = fused_apply_cohort(cur, v, trained, w, 100.0, 0.9,
+                               kernel="triton")
+    for _ in range(100):
+        again = fused_apply_cohort(cur, v, trained, w, 100.0, 0.9,
+                                   kernel="triton")
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    torch.cuda.synchronize()
+    assert int(ticket_counter(cuda_device)) == 0
+
+
+@pytest.mark.cuda
+def test_k1_cohort_non_unit_weights_through_the_device_tensor(cuda_device):
+    cur, v, trained, w = _cohort(4097, 4, 9, cuda_device)
+    out = fused_apply_cohort(cur, v, trained, w, 10.0, 0.9)
+    ones = fused_apply_cohort(cur, v, trained, None, 10.0, 0.9)
+    # weights of 1: mixed is the last trained row
+    assert torch.equal(ones[0], trained[-1])
+    assert not torch.equal(out[0], ones[0])
+    _assert_cohort_close(out, fused_apply_cohort_ref(cur, v, trained, w,
+                                                     10.0, 0.9))
+    _assert_cohort_close(ones, fused_apply_cohort_ref(
+        cur, v, trained, torch.ones_like(w), 10.0, 0.9))
+    for t in (cur, v, trained, w):       # nothing written in place
+        assert t.data_ptr() not in {o.data_ptr() for o in out[:2]}
+
+
+@pytest.mark.cuda
+def test_k1_cohort_counts_launches_and_pushes(cuda_device):
+    cur, v, trained, w = _cohort(62006, 7, 2, cuda_device)
+    launches, pushes = fused_apply_triton.launches, fused_apply_triton.pushes
+    fused_apply_cohort(cur, v, trained, w, 100.0, 0.9)
+    fused_apply_cohort(cur, v, trained[:1], None, 100.0, 0.9)
+    fused_apply_cohort(cur, v, trained, w, 100.0, 0.9, kernel="reference")
+    fused_apply_flat(cur, v, trained[0], 0.5, 100.0, 0.9)
+    assert fused_apply_triton.launches == launches + 3
+    assert fused_apply_triton.pushes == pushes + 9
+
+
+@pytest.mark.cuda
+def test_k1_one_push_at_2_24_plus_17_matches_plain(cuda_device):
+    n = 2 ** 24 + 17
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    cur, v = (torch.randn(n, generator=gen, device=cuda_device)
+              for _ in range(2))
+    trained = torch.randn((1, n), generator=gen, device=cuda_device)
+    for w in (None, torch.full((1,), 0.3, device=cuda_device)):
+        _assert_cohort_close(
+            fused_apply_cohort(cur, v, trained, w, 100.0, 0.9,
+                               kernel="triton"),
+            fused_apply_cohort_ref(cur, v, trained, w, 100.0, 0.9))
 
 
 @pytest.mark.cuda

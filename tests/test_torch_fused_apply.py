@@ -1,12 +1,14 @@
 """K1, the server push apply, in the PyTorch port against the JAX package.
 
-The port's ``fused_apply_flat`` takes its plain version for CPU tensors;
-it is held against the JAX Pallas kernel (interpret mode, as the JAX
-package's own CPU tests run it) and the JAX oracle on the same numpy
-inputs, at the bounds of ``tests/test_kernels.py``: rtol 1e-6 with atol
-1e-6 on ``mixed``, and atol 1e-6 * (max|v'| + 1) on ``v'`` because
-``(cur - mixed) * inv_eta`` cancels. The Triton kernel itself runs only on
-a card: ``tests/test_torch_cuda.py``."""
+The port's ``fused_apply_flat`` (one push) and ``fused_apply_cohort`` (a
+chunk of up to ``KMAX`` pushes in one launch) take their plain versions
+for CPU tensors; they are held against the JAX Pallas kernel (interpret
+mode, as the JAX package's own CPU tests run it) and the JAX oracle on the
+same numpy inputs — a chunk against k chained JAX pushes — at the bounds
+of ``tests/test_kernels.py``: rtol 1e-6 with atol 1e-6 on ``mixed``, atol
+1e-6 * (max|v'| + 1) on ``v'`` because ``(cur - mixed) * inv_eta``
+cancels, rtol 1e-5 on the sums of squares and their roots. The Triton
+kernel itself runs only on a card: ``tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
 
@@ -18,7 +20,7 @@ from repro.kernels.fused_update.ref import fused_apply_flat_ref as jax_ref  # no
 from repro.optim.gap import fused_weighted_apply as jax_tree_apply  # noqa: E402
 from repro_torch.core.server import AsyncParameterServer  # noqa: E402
 from repro_torch.kernels.fused_update import (  # noqa: E402
-    fused_apply_flat, fused_weighted_apply)
+    KMAX, fused_apply_cohort, fused_apply_flat, fused_weighted_apply)
 
 SIZES = (0, 1, 127, 1029, 62006)
 WEIGHTS = (1.0, 0.6, 0.05)
@@ -100,3 +102,96 @@ def test_default_device_server_without_cuda_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         AsyncParameterServer(torch.zeros(8), eta=0.01, beta=0.9)
 
+
+
+COHORT_K = (1, 3, 16)
+COHORT_SIZES = (0, 1, 1029, 62006)
+
+
+def _cohort_inputs(n, k, seed):
+    rng = np.random.default_rng(seed)
+    cur, v = (rng.standard_normal(n).astype(np.float32) for _ in range(2))
+    trained = rng.standard_normal((k, n)).astype(np.float32)
+    return cur, v, trained, rng.uniform(0.05, 1.0, k).astype(np.float32)
+
+
+@pytest.mark.parametrize("mixed_weights", (False, True))
+@pytest.mark.parametrize("n", COHORT_SIZES)
+@pytest.mark.parametrize("k", COHORT_K)
+def test_cohort_matches_chained_jax_pushes(k, n, mixed_weights):
+    beta, eta = BETA_ETA[(k + COHORT_SIZES.index(n)) % len(BETA_ETA)]
+    inv_eta = 1.0 / eta
+    cur, v, trained, w = _cohort_inputs(n, k, seed=100 * k + n)
+    if not mixed_weights:
+        w = np.ones(k, np.float32)
+    p2, v2, sums, norms = fused_apply_cohort(
+        torch.from_numpy(cur), torch.from_numpy(v),
+        torch.from_numpy(trained),
+        torch.from_numpy(w) if mixed_weights else None, inv_eta, beta)
+    assert p2.shape == v2.shape == (n,)
+    assert sums.shape == norms.shape == (k + 1,)
+    for step in (lambda c, vv, t, wj: jax_apply(c, vv, t, wj, inv_eta, beta,
+                                                interpret=True),
+                 lambda c, vv, t, wj: jax_ref(c, vv, t, wj, inv_eta, beta)):
+        c, vv = jnp.asarray(cur), jnp.asarray(v)
+        sums_ref = [float(jnp.sum(vv * vv))]
+        for j in range(k):
+            c, vv, sq = step(c, vv, jnp.asarray(trained[j]), float(w[j]))
+            sums_ref.append(float(sq))
+        _assert_apply_close(p2.numpy(), v2.numpy(), 0.0, np.asarray(c),
+                            np.asarray(vv), 0.0)
+        np.testing.assert_allclose(sums.numpy(), sums_ref, rtol=1e-5,
+                                   atol=1e-10)
+        np.testing.assert_allclose(norms.numpy(), np.sqrt(sums_ref),
+                                   rtol=1e-5, atol=1e-10)
+
+
+def test_cohort_of_k_equals_k_single_pushes():
+    cur, v, trained, w = (torch.from_numpy(a)
+                          for a in _cohort_inputs(1029, 5, seed=7))
+    p2, v2, sums, norms = fused_apply_cohort(cur, v, trained, w, 100.0, 0.9)
+    sq = [torch.sum(v * v)]
+    for j in range(5):
+        cur, v, s = fused_apply_flat(cur, v, trained[j], float(w[j]), 100.0,
+                                     0.9)
+        sq.append(s)
+    assert torch.equal(p2, cur) and torch.equal(v2, v)
+    assert torch.equal(sums, torch.stack(sq))
+    assert torch.equal(norms, torch.sqrt(sums))
+
+
+def _bad_cohort_args(case):
+    cur, v, trained, w = (torch.from_numpy(a)
+                          for a in _cohort_inputs(64, KMAX + 1, seed=1))
+    if case == "k_above_kmax":
+        return (cur, v, trained, None), "1 to 16"
+    if case == "k_zero":
+        return (cur, v, trained[:0], None), "1 to 16"
+    if case == "trained_width":
+        return (cur, v, trained[:2, :63], None), r"\(k, 64\)"
+    if case == "trained_flat":
+        return (cur, v, trained[0], None), r"\(k, 64\)"
+    if case == "trained_strided":
+        return (cur, v, trained[:2].t().contiguous().t(), None), \
+            "contiguous"
+    if case == "trained_f64":
+        return (cur, v, trained[:2].double(), None), "contiguous f32"
+    if case == "weights_shape":
+        return (cur, v, trained[:2], w[:3]), r"\(2,\) f32"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ("k_above_kmax", "k_zero", "trained_width",
+                                  "trained_flat", "trained_strided",
+                                  "trained_f64", "weights_shape"))
+def test_cohort_argument_checks_raise(case):
+    args, match = _bad_cohort_args(case)
+    with pytest.raises(ValueError, match=match):
+        fused_apply_cohort(*args, 10.0, 0.9)
+
+
+def test_cohort_triton_on_cpu_tensors_raises():
+    cur, v, trained, w = (torch.from_numpy(a)
+                          for a in _cohort_inputs(129, 3, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_apply_cohort(cur, v, trained, w, 10.0, 0.9, kernel="triton")

@@ -24,7 +24,11 @@ import jax  # noqa: E402
 
 from repro.core import Scenario as JaxScenario  # noqa: E402
 from repro.core.realml import LeNetBackend as JaxLeNetBackend  # noqa: E402
+import torch  # noqa: E402
 from repro_torch.core import Scenario  # noqa: E402
+from repro_torch.core.realml import LeNetBackend, _masked_epoch  # noqa: E402
+from repro_torch.core.staleness import gradient_gap  # noqa: E402
+from repro_torch.kernels.fused_update import fused_apply_flat_ref  # noqa: E402
 from repro_torch.models.lenet import params_from_jax  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -84,6 +88,39 @@ def test_real_mode_matches_jax_backend(policy):
     assert [t for t, _ in b.accuracy] == [t for t, _ in a.accuracy]
     np.testing.assert_allclose([x for _, x in b.accuracy],
                                [x for _, x in a.accuracy], atol=0.03)
+
+
+@pytest.mark.parametrize("n_finish", (3, 20))
+def test_finish_cohort_matches_per_push_chain(n_finish):
+    """One K1 call a chunk (20 finishers: chunks of 16 and 4) gives what
+    the per-push chain of ``fused_apply_flat_ref`` gave: parameters and
+    momentum bit for bit, the gaps at rtol 1e-6 (the chain summed the
+    entry norm as ``torch.sum`` before each chunk, the cohort plain
+    version does the same; the kernel on the card sums in its own order)."""
+    kw = dict(n_train=2000, n_test=64, seed=0, device="cpu")
+    a, b = LeNetBackend(20, **kw), LeNetBackend(20, **kw)
+    uids = np.arange(n_finish)[::-1].copy()
+    lags = np.arange(n_finish) % 4
+    for be in (a, b):
+        be.pull_batch(uids, 0)
+    gaps, weights = a.finish_async_batch(uids, np.zeros(n_finish, np.int64),
+                                         lags, 0.01, 0.9)
+    p, v, vn = b.server.params, b.server._v, []
+    for params, idx, mask in b._cohort_chunks(uids):
+        trained = _masked_epoch(params, idx, mask, b._flat_x, b._flat_y,
+                                b.eta, b.beta, b.model_loss)
+        sq = torch.sum(v * v)
+        for j in range(trained.shape[0]):
+            vn.append(float(torch.sqrt(sq)))
+            p, v, sq = fused_apply_flat_ref(p, v, trained[j], 1.0,
+                                            1.0 / b.eta, b.beta)
+    assert not torch.equal(p, b._inflight[int(uids[0])])     # trained
+    assert torch.equal(a.server.params, p) and torch.equal(a.server._v, v)
+    np.testing.assert_allclose(
+        gaps, gradient_gap(np.array(vn), lags, 0.01, 0.9), rtol=1e-6)
+    assert weights.tolist() == [1.0] * n_finish
+    assert a.v_norm() == pytest.approx(float(torch.sqrt(sq)), rel=1e-6)
+    assert a.server.lag_tracker.version == n_finish
 
 
 def test_real_mode_triton_kernel_on_cpu_raises():
