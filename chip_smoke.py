@@ -3,10 +3,17 @@ Triton kernels and the K3 and K4 CUDA C++ kernels (an f32 form on the
 CUDA cores and a bf16 form on the tensor cores, wgmma fed by TMA, each)
 from this checkout and holds each against its plain version (K1, which
 applies a chunk of up to 16 pushes in one launch, also against chained
-one-push launches bit for bit); drives the paper's main path
+one-push launches bit for bit, and as gap_aware's one-push launches whose
+weights are computed on the card); drives the paper's main path
 (online-scheduled async LeNet-5 training, one K1 launch a finisher chunk)
-on the card and checks it against the immediate baseline and a CPU run;
-drives the
+on the card, then the paper's other three schedules (immediate, the
+offline knapsack oracle, FedAvg sync rounds) with online's energy saving
+against each, the online, offline and sync runs again on the CPU (equal
+schedule digests, accuracy within 0.03), online under the aggregation
+rules gap_aware (one K1 launch a push, beside the same run on the plain
+K1), fedasync_poly and hetero_aware (weights through the cohort K1's
+weight tensor), and the LeNet backend's run-to-run repeatability (its
+im2col-and-matmul convolutions against cuDNN's); drives the
 async federated LM trainer at Qwen3-0.6B's full width (596,049,920
 parameters, K2 on every island step, K1 on every push), holds one
 full-width train step's K2 epilogue against the plain version and
@@ -26,6 +33,7 @@ the line before it the ``{"kernels": [...]}`` record.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import inspect
@@ -258,6 +266,32 @@ def phase_k1(fu, cohort_bytes, ticket_counter):
     times["empty"] = empty_launch_ms(5000)
     print(f"K1: an empty Triton launch (one pointer argument) "
           f"{times['empty']:.6f} ms, timed the same way", flush=True)
+    # gap_aware: a chunk's pushes as one-push launches, each weight
+    # computed on the card from the previous launch's norm
+    from repro_torch.core.aggregation import GapAwareRule
+    from repro_torch.core.realml import gap_aware_pushes
+    k = 16
+    cur, v = (torch.randn(LENET_N, generator=gen, device="cuda")
+              for _ in range(2))
+    trained = torch.randn((k, LENET_N), generator=gen, device="cuda")
+    args = (cur, v, trained, np.arange(k) % 4 + 1,
+            torch.linalg.vector_norm(v).reshape(1), GapAwareRule(0.5), None,
+            np.arange(k), 0.01, 0.9, 100.0)
+    out = gap_aware_pushes(*args, "triton")
+    ref = gap_aware_pushes(*args, "reference")
+    max_err = max(max_err, check_cohort(
+        (out[0], out[1], out[2] ** 2, out[2]),
+        (ref[0], ref[1], ref[2] ** 2, ref[2])))
+    np.testing.assert_allclose(out[3].cpu().numpy(), ref[3].cpu().numpy(),
+                               rtol=1e-6)
+    assert float(out[3].min()) < 1.0
+    ms = time_ms(lambda: gap_aware_pushes(*args, "triton"), 200) / k
+    plain = time_ms(lambda: gap_aware_pushes(*args, "reference"), 20) / k
+    times["gap_aware"] = (ms, plain)
+    print(f"K1 gap_aware, {k} one-push launches at n={LENET_N} with the "
+          f"weights computed on the card: match the plain chain (weights at "
+          f"rtol 1e-6); {ms:.6f} ms a push (weight + launch), plain "
+          f"{plain:.6f} ms", flush=True)
     return max_err, times
 
 
@@ -338,29 +372,38 @@ def _time_calls(obj, name, stats):
     setattr(obj, name, timed)
 
 
-def run_main(Scenario, policy, device, counter):
-    """One run of the main path; returns (result, wall_s, launches, pushes,
-    chunks). Prints the host seconds spent in the backend's entry points:
-    the cohort finish (local epochs + K1 pushes), the evaluation, and
-    ``v_norm``, the host sync the online policy makes every slot that has
-    waiting users; and, inside the finish, in the K1 wrapper calls (the
-    push side: one a chunk of at most COHORT_CHUNK finishers)."""
+def run_main(Scenario, policy, device, counter, aggregation="replace",
+             kernel="auto", label="", **over):
+    """One run of the main path (``MAIN``, with ``over`` replacing its
+    entries); returns (result, wall_s, launches, pushes, chunks, stats,
+    the simulator).
+    Prints the host seconds spent in the backend's entry points: the
+    cohort finish (local epochs + K1 pushes; ``local_train_batch`` under
+    sync), the evaluation, and ``v_norm``, the host sync the online policy
+    makes every slot that has waiting users; and, inside the finish, in
+    the K1 wrapper calls (the push side: one a chunk of at most
+    COHORT_CHUNK finishers, one a push under gap_aware) and, under
+    gap_aware, in ``gap_aware_pushes`` (the weights computed on the card,
+    then the one-push launches)."""
     from repro_torch.core import realml
-    sim = Scenario(policy=policy, ml="lenet", ml_kwargs=dict(device=device),
-                   **MAIN).build()
+    sim = Scenario(policy=policy, ml="lenet", aggregation=aggregation,
+                   kernel=kernel, ml_kwargs=dict(device=device),
+                   **dict(MAIN, **over)).build()
     backend = sim.ml_backend
+    entry = "local_train_batch" if backend.sync else "finish_async_batch"
     stats = {}
-    for name in ("finish_async_batch", "evaluate", "v_norm"):
+    for name in (entry, "evaluate", "v_norm"):
         _time_calls(backend, name, stats)
-    _time_calls(realml, "fused_apply_cohort", stats)
-    finish = backend.finish_async_batch
+    for name in ("fused_apply_cohort", "gap_aware_pushes"):
+        _time_calls(realml, name, stats)
+    train = getattr(backend, entry)
     chunks = [0]
 
     def counted(uids, *a, **k):
         chunks[0] += -(-len(uids) // backend.COHORT_CHUNK)
-        return finish(uids, *a, **k)
+        return train(uids, *a, **k)
 
-    backend.finish_async_batch = counted
+    setattr(backend, entry, counted)
     if device == "cuda":
         torch.cuda.synchronize()
     counter.launches = counter.pushes = 0
@@ -368,23 +411,279 @@ def run_main(Scenario, policy, device, counter):
     try:
         res = sim.run()
     finally:
-        realml.fused_apply_cohort = realml.fused_apply_cohort.__wrapped__
+        for name in ("fused_apply_cohort", "gap_aware_pushes"):
+            setattr(realml, name, getattr(realml, name).__wrapped__)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, pushes = counter.launches, counter.pushes
-    print(f"{policy} on {device}: energy {res.energy_j!r} J, updates "
+    label = (f"{policy} ({aggregation}, kernel={kernel}{label}"
+             f"{''.join(f', {k}={v}' for k, v in over.items())})")
+    print(f"{label} on {device}: energy {res.energy_j!r} J, updates "
           f"{res.updates}, pushes {len(res.push_log)}, finisher chunks "
           f"{chunks[0]}, K1 launches {launches} applying {pushes} pushes, "
           f"co-run fraction {res.corun_fraction!r}, mean_H {res.mean_H!r}, "
+          f"schedule digest {schedule_digest(res.push_log)[:16]}, "
           f"accuracy {res.accuracy}, wall {wall!r} s, "
           f"{res.updates / wall!r} updates/s; host seconds (calls): "
           + ", ".join(f"{k} {v[1]!r} ({v[0]})" for k, v in stats.items())
-          + " (fused_apply_cohort: the push side of finish_async_batch)",
-          flush=True)
+          + " (fused_apply_cohort: the K1 wrapper calls)", flush=True)
     assert np.isfinite(res.energy_j) and res.energy_j > 0
     assert all(0.0 <= a <= 1.0 for _, a in res.accuracy)
-    return res, wall, launches, pushes, chunks[0]
+    return res, wall, launches, pushes, chunks[0], stats, sim
+
+
+def phase_schedules(Scenario, counter, online):
+    """The paper's other three schedules at the main-path setting on the
+    card (Figs. 4-6 compare online against them): immediate and offline
+    push through K1 (launches = finisher chunks, pushes = updates), sync
+    averages FedAvg rounds (one a closed round, the model moved from its
+    initial parameters) and launches no K1. How far sync's accuracy
+    climbs depends on the initial parameters (the JAX package's own sync
+    at this setting ends at chance for some seeds), so the card's sync is
+    held to the CPU run's in ``phase_cpu`` and to the JAX package's, on
+    the same initial parameters, by tests/test_torch_sync.py. Prints each
+    schedule's energy, updates, co-run fraction, final accuracy and K1
+    launches, and online's energy saving against each. Returns {policy:
+    result}."""
+    runs = {"online": online}
+    for policy in ("immediate", "offline", "sync"):
+        res, _, launches, pushes, chunks, _, sim = run_main(
+            Scenario, policy, "cuda", counter)
+        assert res.updates > 0, policy
+        if policy == "sync":
+            # FedAvg: no K1; every closed round averaged its models into
+            # a new global model
+            assert launches == pushes == 0, "sync launched K1"
+            b = sim.ml_backend
+            p0 = b.model_init(torch.Generator().manual_seed(MAIN["seed"]),
+                              device="cuda")
+            moved = float((b.server.params - p0).abs().max())
+            print(f"sync: {b.server.round} rounds averaged (version "
+                  f"{sim.state.version}); the global model moved "
+                  f"{moved!r} (max abs) from its initial parameters",
+                  flush=True)
+            assert b.server.round == sim.state.version > 1
+            assert moved > 0.0, "sync rounds left the model as it was"
+        else:
+            assert launches == chunks, (policy, launches, chunks)
+            assert pushes == len(res.push_log) == res.updates, policy
+        runs[policy] = res
+    for policy, res in runs.items():
+        print(f"schedule {policy}: energy {res.energy_j!r} J, updates "
+              f"{res.updates}, co-run fraction {res.corun_fraction!r}, "
+              f"final accuracy {res.accuracy[-1][1]!r}", flush=True)
+    for policy in ("immediate", "offline", "sync"):
+        print(f"online vs {policy}: energy saving "
+              f"{1.0 - online.energy_j / runs[policy].energy_j!r}",
+              flush=True)
+    return runs
+
+
+@contextlib.contextmanager
+def card_conv_route():
+    """LeNet's convolutions as the card computes them (im2col + matmul,
+    ``lenet.conv_im2col``) on every device for the block."""
+    from repro_torch.models import lenet
+    saved = lenet._conv
+    lenet._conv = lenet.conv_im2col
+    try:
+        yield
+    finally:
+        lenet._conv = saved
+
+
+def phase_cpu(Scenario, counter, card):
+    """The online, offline and sync runs again on the CPU (the plain K1,
+    the card's convolution route, im2col + matmul, on the CPU's BLAS):
+    while mean_H == 0 the schedule digest must equal the card's and
+    accuracy agree within 0.03 at every sample (the bound of
+    tests/test_real_mode.py). Both sides take one algorithm, so what parts
+    them is the two libraries' rounding; with ``F.conv2d`` on the CPU,
+    offline's last sample lands 0.031 from the card's after an hour (a
+    near-zero ReLU pre-activation taken to the other side)."""
+    for policy in ("online", "offline", "sync"):
+        with card_conv_route():
+            cpu, _, launches, pushes, _, _, _ = run_main(
+                Scenario, policy, "cpu", counter)
+        assert launches == pushes == 0, "a CPU run launched K1"
+        gpu = card[policy]
+        if gpu.mean_H == 0.0 and cpu.mean_H == 0.0:
+            assert schedule_digest(cpu.push_log) == \
+                schedule_digest(gpu.push_log), f"{policy}: schedules differ"
+            assert [s for s, _ in cpu.accuracy] == \
+                [s for s, _ in gpu.accuracy]
+            gap = float(np.max(np.abs(
+                np.array([a for _, a in gpu.accuracy])
+                - np.array([a for _, a in cpu.accuracy]))))
+            assert gap <= 0.03, f"{policy}: accuracy {gap} apart"
+            print(f"CPU {policy} run: same schedule digest "
+                  f"{schedule_digest(gpu.push_log)[:16]}, accuracy at most "
+                  f"{gap!r} apart", flush=True)
+        else:
+            print(f"CPU {policy} run: mean_H {cpu.mean_H!r} / "
+                  f"{gpu.mean_H!r} > 0, schedules may part ways; digest not "
+                  "compared", flush=True)
+
+
+def phase_rules(Scenario, counter, online):
+    """The aggregation rules beyond replace, online on the card. gap_aware
+    (the main-path setting): one one-push K1 launch a push, each weight
+    computed on the card from the previous launch's norm, so launches =
+    pushes = updates; the schedule equals the replace run's while mean_H
+    == 0; every logged weight is the rule's of its own pre-push norm
+    (rtol 1e-6); the same run with the plain K1 (kernel="reference", on
+    the card) takes the same pushes with the same weights (rtol 1e-6)
+    until rounding in the sums of squares parts the two trajectories,
+    and its accuracy stays within 0.03 (the bound of
+    tests/test_real_mode.py for two f32 runs of a schedule). fedasync_poly and
+    hetero_aware (horizon cut to 900 s): the weights, known before a
+    chunk, go through the cohort K1's weight tensor, so launches =
+    finisher chunks. Returns (gap_aware launches, host ms a push)."""
+    res, wall, launches, pushes, chunks, stats, _ = run_main(
+        Scenario, "online", "cuda", counter, aggregation="gap_aware")
+    assert launches == pushes == len(res.push_log) == res.updates, \
+        (launches, pushes, res.updates)
+    if res.mean_H == 0.0 and online.mean_H == 0.0:
+        assert schedule_digest(res.push_log) == \
+            schedule_digest(online.push_log), "gap_aware schedule differs"
+    ref, ref_wall, ref_launches, _, _, ref_stats, _ = run_main(
+        Scenario, "online", "cuda", counter, aggregation="gap_aware",
+        kernel="reference")
+    assert ref_launches == 0
+    assert schedule_digest(ref.push_log) == schedule_digest(res.push_log)
+    gap_ref = 1.0       # GapAwareRule's default
+    (w, g), (w_ref, g_ref) = (
+        (np.array([e["weight"] for e in r.push_log]),
+         np.array([e["gap"] for e in r.push_log])) for r in (res, ref))
+    for ww, gg in ((w, g), (w_ref, g_ref)):
+        # each weight is the rule's of its own pre-push norm (f32 on the
+        # card against the f64 gap logged from the same norm)
+        np.testing.assert_allclose(ww, 1.0 / (1.0 + gg / gap_ref),
+                                   rtol=1e-6)
+    assert w.min() < 1.0 and np.all((0.0 < w) & (w <= 1.0))
+    # the two runs take the same pushes with the same weights until K1's
+    # sums of squares (another order than torch.sum's, rtol 1e-5) have
+    # moved a weight, and with it the model, far enough to part them
+    parted = ~np.isclose(g, g_ref, rtol=1e-5, atol=1e-9)
+    prefix = int(np.argmax(parted)) if parted.any() else len(g)
+    np.testing.assert_allclose(w[:prefix], w_ref[:prefix], rtol=1e-6)
+    assert prefix > int(np.argmax(w < 1.0)), \
+        "the K1 and plain runs part before their first weight below 1"
+    acc_gap = float(np.max(np.abs(np.array([a for _, a in res.accuracy])
+                                  - np.array([a for _, a in ref.accuracy]))))
+    push_ms = stats["gap_aware_pushes"][1] / max(pushes, 1) * 1e3
+    ref_push_ms = ref_stats["gap_aware_pushes"][1] / max(pushes, 1) * 1e3
+    print(f"gap_aware, K1 against the plain K1 on the card: every weight is "
+          f"the rule's of its own gap (rtol 1e-6); the runs' weights agree "
+          f"(rtol 1e-6) over their first {prefix} of {len(w)} pushes, until "
+          f"rounding parts them (max weight difference over the run "
+          f"{float(np.max(np.abs(w - w_ref)))!r}, min weight {w.min()!r}); "
+          f"accuracy at most {acc_gap!r} apart; walls {wall!r} s (K1) and "
+          f"{ref_wall!r} s (plain); the push side {push_ms!r} ms a push (K1) "
+          f"and {ref_push_ms!r} ms (plain) of host time", flush=True)
+    assert acc_gap <= 0.03, acc_gap
+    for rule in ("fedasync_poly", "hetero_aware"):
+        r, _, n_launch, n_push, n_chunks, _, _ = run_main(
+            Scenario, "online", "cuda", counter, aggregation=rule,
+            horizon_s=900)
+        assert n_launch == n_chunks and n_push == r.updates > 0, rule
+        wr = np.array([e["weight"] for e in r.push_log])
+        assert wr.min() < 1.0, rule
+    return launches, push_ms
+
+
+CONV_ROUTES = ("im2col + matmul (the model's)", "cuDNN, default algorithms",
+               "cuDNN, deterministic algorithms")
+
+
+def cudnn_conv(x, w, b):
+    """LeNet's convolution through cuDNN (``F.conv2d``), for comparison."""
+    return torch.nn.functional.conv2d(x, w.permute(3, 2, 0, 1), b)
+
+
+@contextlib.contextmanager
+def conv_route(i):
+    """Run LeNet on the card through ``CONV_ROUTES[i]`` for the block; the
+    model's convolution and cuDNN's flags are restored after it."""
+    from repro_torch.models import lenet
+    cudnn = torch.backends.cudnn
+    saved = lenet._conv, cudnn.deterministic, cudnn.benchmark
+    if i:
+        lenet._conv = cudnn_conv
+        cudnn.deterministic, cudnn.benchmark = i == 2, False
+    try:
+        yield
+    finally:
+        lenet._conv, cudnn.deterministic, cudnn.benchmark = saved
+
+
+def phase_repeat(Scenario, counter):
+    """Run-to-run repeatability of the LeNet backend on the card, and how
+    close each way of computing its convolutions stays to the CPU. One
+    16-lane chunk of the main path's local epoch on the CPU (the card's
+    route), then on the card three times through each of ``CONV_ROUTES``: are the three equal
+    bit for bit, how far are they from the CPU's (max and mean |diff|), and
+    what does an epoch take (CUDA events)? A profile of one epoch names the
+    convolution kernels of the cuDNN routes. Then the immediate schedule,
+    its horizon cut to 900 s, twice through the model's route (equal push
+    logs and accuracy) and twice through cuDNN's default algorithms (the
+    spread, and the wall of each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.realml import LeNetBackend, _masked_epoch
+    lanes = min(16, MAIN["n_users"])
+
+    def chunk(device):
+        b = LeNetBackend(MAIN["n_users"], seed=0, device=device)
+        b.pull_batch(np.arange(lanes), 0)
+        params, idx, mask = next(b._cohort_chunks(np.arange(lanes)))
+        return lambda: _masked_epoch(params, idx, mask, b._flat_x,
+                                     b._flat_y, b.eta, b.beta, b.model_loss)
+
+    with card_conv_route():
+        ref = chunk("cpu")()
+    epoch = chunk("cuda")
+    for i, name in enumerate(CONV_ROUTES):
+        with conv_route(i):
+            outs = [epoch() for _ in range(3)]
+            ms = time_ms(epoch, 5)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                epoch()
+                torch.cuda.synchronize()
+        same = all(torch.equal(outs[0], o) for o in outs[1:])
+        spread = max(float((outs[0] - o).abs().max()) for o in outs[1:])
+        d = (outs[0].cpu() - ref).abs()
+        rows = sorted(((e.key, e.self_device_time_total, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        conv = [r for r in rows if any(w in r[0].lower() for w in (
+            "conv", "wgrad", "dgrad", "winograd", "implicit", "gemm"))]
+        print(f"repeat, one epoch of {lanes} lanes, {name}: three runs "
+              f"{'equal bit for bit' if same else 'DIFFER'} (max |diff| "
+              f"{spread!r}); against the CPU's epoch max |diff| "
+              f"{float(d.max())!r}, mean {float(d.mean())!r}; {ms!r} ms an "
+              f"epoch", flush=True)
+        for key, us, count in conv[:5]:
+            print(f"repeat:   {us * 1e-3:9.3f} ms {count:5d}x  {key[:100]}",
+                  flush=True)
+        if i == 0:
+            assert same, "the model's epochs differ between runs"
+    for i in (0, 1):
+        with conv_route(i):
+            runs = [run_main(Scenario, "immediate", "cuda", counter,
+                             label="" if i == 0 else f", {CONV_ROUTES[i]}",
+                             horizon_s=900)
+                    for _ in range(2)]
+        (r1, w1, *_), (r2, w2, *_) = runs
+        same = list(r1.push_log) == list(r2.push_log) and \
+            r1.accuracy == r2.accuracy
+        print(f"repeat, immediate 900 s twice, {CONV_ROUTES[i]}: "
+              f"{'equal' if same else 'DIFFER'}; accuracy {r1.accuracy} / "
+              f"{r2.accuracy}; walls {w1!r} / {w2!r} s", flush=True)
+        if i == 0:
+            assert same, "two card runs of the model's route differ"
 
 
 def profile_main(Scenario, horizon_s):
@@ -1012,7 +1311,7 @@ def main() -> int:
 
     # ---- 3. the main path on the card ------------------------------------
     t = time.perf_counter()
-    online, wall, launches, pushes, chunks = run_main(
+    online, wall, launches, pushes, chunks, _, _ = run_main(
         Scenario, "online", "cuda", fused_apply_triton)
     assert online.updates > 0, "the online policy made no update"
     assert launches == chunks, (launches, chunks)
@@ -1021,38 +1320,29 @@ def main() -> int:
     print(f"main path phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
-    profile_main(Scenario, horizon_s=1200)
+    profile_main(Scenario, horizon_s=300)
     print(f"profile phase: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # ---- 4. the immediate baseline ----------------------------------------
+    # ---- 4. the paper's other schedules: immediate, offline, sync -------
     t = time.perf_counter()
-    immediate, _, imm_launches, imm_pushes, imm_chunks = run_main(
-        Scenario, "immediate", "cuda", fused_apply_triton)
-    assert imm_launches == imm_chunks
-    assert imm_pushes == immediate.updates > 0
-    saving = 1.0 - online.energy_j / immediate.energy_j
-    print(f"online vs immediate: energy saving {saving!r}", flush=True)
-    print(f"immediate phase: {time.perf_counter() - t:.1f} s", flush=True)
+    card = phase_schedules(Scenario, fused_apply_triton, online)
+    print(f"schedules phase: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # ---- 5. the same online run on the CPU --------------------------------
+    # ---- 5. online, offline and sync again on the CPU ---------------------
     t = time.perf_counter()
-    cpu, _, cpu_launches, cpu_pushes, _ = run_main(
-        Scenario, "online", "cpu", fused_apply_triton)
-    assert cpu_launches == cpu_pushes == 0, "a CPU run launched K1"
-    if online.mean_H == 0.0 and cpu.mean_H == 0.0:
-        assert schedule_digest(cpu.push_log) == \
-            schedule_digest(online.push_log), "CPU/CUDA schedules differ"
-        assert [s for s, _ in cpu.accuracy] == \
-            [s for s, _ in online.accuracy]
-        np.testing.assert_allclose([a for _, a in online.accuracy],
-                                   [a for _, a in cpu.accuracy], atol=0.03)
-        print(f"CPU run: same schedule digest "
-              f"{schedule_digest(online.push_log)[:16]}, accuracy within "
-              f"0.03", flush=True)
-    else:
-        print(f"CPU run: mean_H {cpu.mean_H!r} / {online.mean_H!r} > 0, "
-              "schedules may part ways; digest not compared", flush=True)
+    phase_cpu(Scenario, fused_apply_triton, card)
     print(f"CPU phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 5b. the aggregation rules beyond replace -------------------------
+    t = time.perf_counter()
+    gap_launches, gap_host_ms = phase_rules(Scenario, fused_apply_triton,
+                                            online)
+    print(f"rules phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 5c. run-to-run repeatability on the card -------------------------
+    t = time.perf_counter()
+    phase_repeat(Scenario, fused_apply_triton)
+    print(f"repeat phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 6. K2 against its plain version ---------------------------------
     t = time.perf_counter()
@@ -1092,7 +1382,11 @@ def main() -> int:
           f"{LENET_N}: a chunk of 1 push {ms:.6f} ms, of 16 "
           f"{times[LENET_N, 16][0]:.6f} ms, an empty Triton launch "
           f"{times['empty']:.6f} ms; {launches} launches ({chunks} finisher "
-          f"chunks) applied {pushes} pushes in the online run", flush=True)
+          f"chunks) applied {pushes} pushes in the online run. gap_aware: "
+          f"{times['gap_aware'][0]:.6f} ms a push on the card (plain "
+          f"{times['gap_aware'][1]:.6f} ms), {gap_launches} one-push "
+          f"launches in its online run, {gap_host_ms:.6f} ms of host time a "
+          f"push there", flush=True)
     print(f"card: {card}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
@@ -1103,6 +1397,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_update/kernel.py:91",
         "launches": launches,
         "pushes": pushes,
+        "gap_aware_launches": gap_launches,
+        "gap_aware_ms_per_push": times["gap_aware"][0],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

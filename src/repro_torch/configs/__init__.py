@@ -3,7 +3,7 @@
 
 The port has the architectures whose family it builds (``models/zoo.py``):
 the dense ``qwen3-0.6b`` and the SSM ``mamba2-370m``. Every other id of
-the JAX registry is still to port and raises (ROADMAP Queue 1 item 12).
+the JAX registry is still to port and raises (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ def _module(arch: str):
     if arch not in ALIASES:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 12); the port has {sorted(ALIASES)}")
+            f"item 7); the port has {sorted(ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{ALIASES[arch]}")
 
 

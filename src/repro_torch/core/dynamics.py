@@ -5,7 +5,7 @@ assumes an always-on fleet, which is ``NoDynamics`` (the default): it is
 INACTIVE — no state, no draws, no effect — so the engine skips the
 dynamics phase entirely. Active dynamics (the JAX package's
 ``MarkovChurnDynamics``, whose draws come from jax's threefry) are still
-to port (ROADMAP Queue 1 items 3 and 4); ``SimConfig`` refuses them.
+to port (ROADMAP Queue 1 item 4); ``SimConfig`` refuses them.
 """
 from __future__ import annotations
 

@@ -20,6 +20,9 @@ import numpy as np
 
 # Shared state encodings of the engine (re-exported by core/policies.py).
 MODE_WAIT, MODE_TRAIN, MODE_COOL = 0, 1, 2
+# Offline (Alg. 1) per-user plan codes: hold until the next plan, wait to
+# co-run, train now separately.
+PLAN_HOLD, PLAN_CORUN, PLAN_SEP = 0, 1, 2
 
 # Column order of the push-event records. ``weight`` is the aggregation
 # rule's applied mixing weight (core/aggregation.py) — 1.0 under the
@@ -35,10 +38,13 @@ class EngineState:
     cool), ``cooldown`` slots left, current ``app`` id (-1 = none), remaining
     app / training seconds, ``corun`` flag of the current/last training run,
     the accumulated Eq. (12) ``idle_gap``, the global ``pulled_at`` version,
-    and per-user ``energy`` (J) and ``updates``.
+    per-user ``energy`` (J) and ``updates``, and the offline policy's
+    ``plan`` code (``PLAN_*``; reset to hold when a user re-enters the
+    waiting queue).
 
     Scheduler / server scalars: global model ``version``, ``in_flight``
-    trainer count, the Lyapunov queues ``Q`` / ``H`` (Eqs. 15/16) plus their
+    trainer count, ``round_open`` (a sync round is training), the Lyapunov
+    queues ``Q`` / ``H`` (Eqs. 15/16) plus their
     horizon sums, and the co-run update counter. ``carry`` is the policy's
     carry (``Policy.init_carry``), ``agg_carry`` the aggregation rule's
     (``AggregationRule.init_carry``).
@@ -55,9 +61,11 @@ class EngineState:
     pulled_at: Any
     energy: Any
     updates: Any
+    plan: Any
     # ---- scheduler / server scalars ----------------------------------
     version: Any = 0
     in_flight: Any = 0
+    round_open: Any = False
     Q: Any = 0.0
     H: Any = 0.0
     sum_Q: Any = 0.0
@@ -84,6 +92,7 @@ class EngineState:
             pulled_at=np.zeros(n, dtype=np.int64),
             energy=np.zeros(n),
             updates=np.zeros(n, dtype=np.int64),
+            plan=np.full(n, PLAN_HOLD, dtype=np.int8),
             carry=policy.init_carry(n, cfg),
             agg_carry=None if agg is None else agg.init_carry(n, cfg, fleet),
         )

@@ -1,5 +1,5 @@
 """Real-ML coupling for the simulator (Fig. 5): LeNet-5 on cifarlike data,
-momentum SGD (Eq. 1), asynchronous parameter server.
+momentum SGD (Eq. 1), asynchronous parameter server vs FedAvg.
 
 The counterpart of ``repro/core/realml.py``. A ``BatchedMLBackend`` owns
 the server, the per-client shards and the in-flight (pulled) parameter
@@ -16,7 +16,23 @@ parameters and momentum are single buffers and a chunk of pushes is one
 K1 pass over the whole model: each push's mix and momentum update, and
 every norm the finish needs — the entry ``||v||`` and each push's
 post-push norm, so push j's pre-push Eq. (4) norm is norm j and the final
-``||v||`` norm k. No torch operation runs around the launch.
+``||v||`` norm k. The rule's weights enter as K1's ``(k,)`` weight tensor:
+none under ``replace``, the host weights of ``fedasync_poly`` and
+``hetero_aware`` (lag and user only, known before the chunk). Under
+``gap_aware`` push j's weight reads the norm push j - 1 left behind, so
+each push is its own one-push K1 launch whose weight is computed on the
+device from the previous launch's norm (``scan_weight``, the rule's tensor
+twin), with no host copy between pushes.
+
+With ``sync=True`` (the ``sync`` policy, FedAvg) the server is a
+``SyncServer``: each finisher cohort is trained from the round's pulled
+model and submitted (``local_train_batch``, ``submit_batch``), and the
+round's models are averaged when it closes (``sync_aggregate``). No K1
+runs under sync.
+
+On the card LeNet's convolutions are im2col and a matmul
+(``models/lenet.py``), so two runs there give the same models bit for
+bit.
 
 Randomness: the initial parameters come from a ``torch.Generator`` seeded
 with the run seed, and each client's minibatch permutations from its own
@@ -33,6 +49,7 @@ the gaps agree within float tolerance (two libraries' f32 convolutions).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Type, Union
 
 import numpy as np
@@ -44,8 +61,8 @@ from ..device import resolve_device
 from ..kernels.fused_update import KMAX, fused_apply_cohort
 from ..models.lenet import init_lenet, lenet_logits, lenet_loss
 from .aggregation import AggregationRule
-from .server import AsyncParameterServer
-from .staleness import gradient_gap
+from .server import AsyncParameterServer, SyncServer
+from .staleness import gradient_gap, momentum_scale
 
 
 class BatchedMLBackend:
@@ -56,13 +73,15 @@ class BatchedMLBackend:
     in-flight user. Construct a fresh backend per run.
 
     Attributes the engine relies on: ``n_users`` (validated against
-    ``SimConfig.n_users``), ``server.rule`` (checked against
-    ``SimConfig.aggregation``) and ``eval_every`` (slots between accuracy
-    samples).
+    ``SimConfig.n_users``), ``sync`` (FedAvg rounds: matched against the
+    policy's ``sync_rounds``), ``server.rule`` (async servers; checked
+    against ``SimConfig.aggregation``) and ``eval_every`` (slots between
+    accuracy samples).
     """
 
     name: str = ""
     n_users: int = 0
+    sync: bool = False
     eval_every: int = 600
 
     def bind_fleet(self, fleet_spec, cfg=None) -> None:
@@ -83,8 +102,23 @@ class BatchedMLBackend:
         mixing weight; ``(None, None)`` with ``need_gaps=False``."""
         raise NotImplementedError
 
+    def local_train_batch(self, uids: np.ndarray, versions=None):
+        """Sync rounds: one local epoch for every uid from its pulled
+        parameters; returns the trained models, one row a uid."""
+        raise NotImplementedError
+
+    def submit_batch(self, uids, trained, lags, eta, beta):
+        """Sync rounds: hand the trained models to the server for the
+        round's average. Returns ``(gaps, weights)`` for the push log."""
+        raise NotImplementedError
+
+    def sync_aggregate(self) -> None:
+        """Sync rounds: average the round's submissions (round close)."""
+        raise NotImplementedError
+
     def v_norm(self) -> float:
-        """Current global momentum norm (a host float: a device sync)."""
+        """Current global momentum norm (a host float: a device sync; 0.0
+        under sync)."""
         raise NotImplementedError
 
     def evaluate(self) -> float:
@@ -107,9 +141,11 @@ def registered_ml_backends() -> tuple:
 
 
 def make_backend(ml: Union[str, BatchedMLBackend], n_users: int, *,
-                 seed: int = 0, **kwargs) -> BatchedMLBackend:
+                 sync: bool = False, seed: int = 0,
+                 **kwargs) -> BatchedMLBackend:
     """Resolve ``ml`` to a fresh backend instance. Strings go through the
-    registry; instances pass through as-is."""
+    registry; instances pass through as-is (their constructor already fixed
+    n_users/sync/seed)."""
     if isinstance(ml, BatchedMLBackend):
         return ml
     if isinstance(ml, str):
@@ -117,7 +153,7 @@ def make_backend(ml: Union[str, BatchedMLBackend], n_users: int, *,
             raise ValueError(f"unknown ML backend {ml!r}; expected one of "
                              f"{registered_ml_backends()} or a "
                              "BatchedMLBackend instance")
-        return ML_BACKENDS[ml](n_users, seed=seed, **kwargs)
+        return ML_BACKENDS[ml](n_users, sync=sync, seed=seed, **kwargs)
     raise ValueError(f"ml must be a name or BatchedMLBackend instance, "
                      f"got {type(ml).__name__}")
 
@@ -143,6 +179,41 @@ def _masked_epoch(params, idx, mask, flat_x, flat_y, eta, beta, loss_fn):
     return p
 
 
+def gap_aware_pushes(p, v, trained, lags, vn_pre, rule, carry, uids, eta,
+                     beta, inv_eta, kernel):
+    """Apply ``trained``'s k rows in order under a gap-reading rule: one
+    one-push K1 launch a row, push j's weight computed on the device from
+    the norm the previous launch left (``vn_pre``, a ``(1,)`` f32 tensor,
+    for push 0 the entry norm):
+
+        gap_j = eta * (1 - beta^lag_j) / (1 - beta) * vn_pre     (Eq. 4)
+        w_j   = rule.scan_weight(gap_j, ...)                     (f32)
+
+    No host copy between pushes: the Eq. 4 scales of the chunk go to the
+    device once. Returns (p', v', pre-push norms (k,), weights (k,),
+    final norm (1,)), all on ``p``'s device."""
+    k = trained.shape[0]
+    dev = p.device
+    scales = torch.tensor(np.asarray(momentum_scale(np.asarray(lags), eta,
+                                                    beta), np.float32),
+                          device=dev)
+    lag_t = torch.as_tensor(np.asarray(lags), device=dev)
+    uid_t = torch.as_tensor(np.asarray(uids), device=dev)
+    consts = rule.scan_operands()
+    pre, ws = [], []
+    for j in range(k):
+        pv = SimpleNamespace(lag=lag_t[j:j + 1], gap=scales[j:j + 1] * vn_pre,
+                             v_norm=vn_pre, users=uid_t[j:j + 1],
+                             consts=consts, float_dtype=torch.float32)
+        _, w = rule.scan_weight(carry, pv)
+        p, v, _, norms = fused_apply_cohort(p, v, trained[j:j + 1], w,
+                                            inv_eta, beta, kernel=kernel)
+        pre.append(vn_pre)
+        ws.append(w)
+        vn_pre = norms[1:]
+    return p, v, torch.cat(pre), torch.cat(ws), vn_pre
+
+
 class ImageClassifierBackend(BatchedMLBackend):
     """Batched backend for an image classifier with flat parameters on
     cifarlike shards. Subclasses bind three module-level model functions
@@ -164,7 +235,7 @@ class ImageClassifierBackend(BatchedMLBackend):
     ALPHA = 100.0       # Dirichlet concentration of the client split
     NOISE = 8.0         # cifarlike difficulty (JAX backend's default)
 
-    def __init__(self, n_users: int, *,
+    def __init__(self, n_users: int, *, sync: bool = False,
                  eta: float = 0.01, beta: float = 0.9,
                  n_train: int = 10000, n_test: int = 2000,
                  batch_size: int = 20,
@@ -187,17 +258,22 @@ class ImageClassifierBackend(BatchedMLBackend):
             for i in range(n_users)]
         params0 = self.model_init(torch.Generator().manual_seed(seed),
                                   device=dev)
-        self.server = AsyncParameterServer(params0, eta=eta, beta=beta,
-                                           aggregation=aggregation,
-                                           kernel=kernel, device=dev)
+        if sync:
+            self.server = SyncServer(params0, device=dev)
+        else:
+            self.server = AsyncParameterServer(params0, eta=eta, beta=beta,
+                                               aggregation=aggregation,
+                                               kernel=kernel, device=dev)
         self.device = dev
         self.kernel = kernel
+        self.sync = sync
         self.n_users = n_users
         self.eta = eta
         self.beta = beta
         self.batch_size = batch_size
         self.eval_every = eval_every
         self.fleet_spec = None
+        self._agg_carry = None
 
         # client shards concatenated flat; a minibatch gather is one index
         # into these (offset + client-local permutation)
@@ -216,8 +292,13 @@ class ImageClassifierBackend(BatchedMLBackend):
         self._inflight: list = [self.server.params] * n_users
 
     def bind_fleet(self, fleet_spec, cfg=None) -> None:
+        """Bind the run's FleetSpec: the async server's host weights and
+        the rule's carry (``hetero_aware``'s per-user scales) read it."""
         self.fleet_spec = fleet_spec
-        self.server.fleet_spec = fleet_spec
+        if not self.sync:
+            self.server.fleet_spec = fleet_spec
+            self._agg_carry = self.server.rule.init_carry(
+                self.n_users, cfg, fleet_spec)
 
     def _next_perm(self, uid: int) -> np.ndarray:
         """The client's next epoch permutation of its shard."""
@@ -256,52 +337,95 @@ class ImageClassifierBackend(BatchedMLBackend):
             params, _ = self.server.pull(int(uid))
             self._inflight[int(uid)] = params
 
+    def _train(self, params, idx, mask):
+        """One chunk's batched local epoch: the trained ``(k, N)``."""
+        return _masked_epoch(params, idx, mask, self._flat_x, self._flat_y,
+                             self.eta, self.beta,
+                             self.model_loss).contiguous()
+
+    def local_train_batch(self, uids, versions=None):
+        uids = np.asarray(uids)
+        if not len(uids):
+            return None
+        parts = [self._train(*chunk) for chunk in self._cohort_chunks(uids)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def submit_batch(self, uids, trained, lags, eta, beta):
+        # the Eq. 4 gap against the sync backend's norm, 0.0: a FedAvg
+        # round has no server momentum
+        gaps = np.asarray(gradient_gap(self.v_norm(), np.asarray(lags), eta,
+                                       beta), dtype=float)
+        for j in range(len(uids)):
+            self.server.submit(trained[j])
+        return gaps, np.ones(len(uids))
+
+    def sync_aggregate(self):
+        self.server.aggregate()
+
     def finish_async_batch(self, uids, versions, lags, eta, beta,
                            need_gaps=True):
         server = self.server
+        rule = server.rule
         uids = np.asarray(uids)
         lags = np.asarray(lags)
-        if server.rule.needs_gap:
-            raise NotImplementedError(
-                f"aggregation rule {server.rule.name!r} reads the Eq. 4 "
-                "gap; gap-reading rules are still to port (ROADMAP Queue 1 "
-                "item 4)")
-        weights = np.broadcast_to(np.asarray(
-            server.rule.weight(lags, None, None, fleet=self.fleet_spec,
-                               users=uids), dtype=np.float64), lags.shape)
         inv_eta = 1.0 / max(self.eta, 1e-12)
         p, v = server.params, server._v
-        vnorms = []
+        vnorms, wparts = [], []
+        if rule.needs_gap:
+            # the entry norm: the device scalar the last finish left, or
+            # the server's float (0.0 before the first push)
+            vn = server.v_norm
+            vn = vn.reshape(1) if torch.is_tensor(vn) else torch.full(
+                (1,), float(vn), dtype=torch.float32, device=self.device)
+        else:
+            # lag- and user-only weights are known before the chunk; K1
+            # applies them in f32, and the log records what it applied
+            weights = np.broadcast_to(np.asarray(
+                rule.weight(lags, None, None, fleet=self.fleet_spec,
+                            users=uids), dtype=np.float32), lags.shape)
         pos = 0
         for params, idx, mask in self._cohort_chunks(uids):
-            trained = _masked_epoch(params, idx, mask, self._flat_x,
-                                    self._flat_y, self.eta, self.beta,
-                                    self.model_loss).contiguous()
+            trained = self._train(params, idx, mask)
             k = trained.shape[0]
-            w = weights[pos:pos + k]
-            # weights of 1 (replace) are K1's cached ones: no copy
-            w = None if np.all(w == 1.0) else torch.tensor(
-                w, dtype=torch.float32, device=self.device)
-            p, v, _, norms = fused_apply_cohort(p, v, trained, w, inv_eta,
-                                                self.beta, kernel=self.kernel)
-            if need_gaps:
+            if rule.needs_gap:
+                p, v, pre, w, vn = gap_aware_pushes(
+                    p, v, trained, lags[pos:pos + k], vn, rule,
+                    self._agg_carry, uids[pos:pos + k], self.eta, self.beta,
+                    inv_eta, self.kernel)
+                vnorms.append(pre)
+                wparts.append(w)
+            else:
+                w = weights[pos:pos + k]
+                # weights of 1 (replace) are K1's cached ones: no copy
+                w = None if np.all(w == 1.0) else torch.from_numpy(
+                    w.copy()).to(self.device)
+                p, v, _, norms = fused_apply_cohort(
+                    p, v, trained, w, inv_eta, self.beta,
+                    kernel=self.kernel)
                 vnorms.append(norms[:k])     # each push's pre-push norm
+                vn = norms[k:]
             pos += k
         server.params, server._v = p, v
         # a 0-d device tensor; v_norm() converts it when a policy asks
-        server.v_norm = norms[k]
+        server.v_norm = vn[0]
         for uid in uids:
             server.lag_tracker.on_push(int(uid))
             server.in_flight.discard(int(uid))
         if not need_gaps:
             return None, None
-        vn = (vnorms[0] if len(vnorms) == 1 else torch.cat(vnorms))
-        vn = vn.cpu().numpy().astype(np.float64)
-        return (np.asarray(gradient_gap(vn, lags, eta, beta), dtype=float),
-                np.array(weights))
+        if rule.needs_gap:
+            # one copy to the host for the finish: norms, then weights
+            both = torch.cat(vnorms + wparts).cpu().numpy()
+            vn, applied = both[:len(uids)], both[len(uids):]
+        else:
+            vn = torch.cat(vnorms).cpu().numpy()
+            applied = weights
+        return (np.asarray(gradient_gap(vn.astype(np.float64), lags, eta,
+                                        beta), dtype=float),
+                applied.astype(np.float64))
 
     def v_norm(self) -> float:
-        return float(self.server.v_norm)
+        return 0.0 if self.sync else float(self.server.v_norm)
 
     @torch.no_grad()
     def evaluate(self) -> float:

@@ -14,14 +14,22 @@ simulator::
                  V=5.0, app_arrival_p=0.004,
                  ml_kwargs=dict(device="cpu")).run()
 
+    # the offline schedule (Alg. 1) over a knob grid, one run a point
+    results = Scenario(policy="offline", n_users=25,
+                       horizon_s=3600).sweep(L_b=[5.0, 1000.0])
+
 Strings resolve through the registries; objects pass through as-is.
-Batched sweeps (``run_sweep``, ``Scenario.grid``) are still to port
-(ROADMAP Queue 1 item 7).
+``run_experiment(policy="online", n_users=25)`` builds the Scenario
+inline for one-liners. ``run_sweep`` runs its points one after another;
+the JAX package's batched config axis (same-shape points stacked under
+one compiled scan) waits for the port's scan engine (ROADMAP Queue 1
+item 6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import itertools
+from typing import List, Optional, Union
 
 from .arrivals import ArrivalProcess, resolve_arrival_or_default
 from .fleet import Fleet, resolve_fleet
@@ -36,9 +44,9 @@ class Scenario:
     ``ml`` couples the schedule to real training: a ``core.realml``
     backend name (``"lenet"``) or ``BatchedMLBackend`` instance — setting
     it forces ``ml_mode="real"``, and ``build()`` constructs a fresh
-    backend per run (seeded from ``SimConfig.seed``, training eta/beta
-    defaulting to the config's, the config's aggregation rule and kernel
-    mode). ``ml_kwargs`` are extra backend constructor arguments
+    backend per run (seeded from ``SimConfig.seed``, round mode matched to
+    the policy's ``sync_rounds``, training eta/beta defaulting to the
+    config's, the config's aggregation rule and kernel mode). ``ml_kwargs`` are extra backend constructor arguments
     (``n_train``, ``batch_size``, ``device``, ...). Remaining keyword
     arguments are ``SimConfig`` fields, or pass a prebuilt ``config=``.
     """
@@ -69,6 +77,10 @@ class Scenario:
                              "pass ml='lenet' (or a backend instance)")
         self.ml = ml
         self.ml_kwargs = dict(ml_kwargs or {})
+        # raw arrivals argument, kept so grid() re-resolves it against
+        # each point's config (a swept app_arrival_p rebinds the default
+        # Bernoulli process; an explicit instance keeps its own rates)
+        self._arrivals_arg = arrivals
         self.policy = resolve_policy(self.config.policy)
         self.arrivals = resolve_arrival_or_default(
             arrivals, self.config.app_arrival_p)
@@ -86,13 +98,36 @@ class Scenario:
             kw.setdefault("seed", self.config.seed)
             kw.setdefault("aggregation", self.config.aggregation)
             kw.setdefault("kernel", self.config.kernel)
-            backend = make_backend(self.ml, self.config.n_users, **kw)
+            backend = make_backend(self.ml, self.config.n_users,
+                                   sync=self.policy.sync_rounds, **kw)
         return FederatedSim(self.config, ml_backend=backend,
                             arrivals=self.arrivals, fleet=self.fleet)
 
     def run(self, ml_backend: Optional[BatchedMLBackend] = None
             ) -> SimResult:
         return self.build(ml_backend=ml_backend).run()
+
+    def grid(self, **axes) -> List["Scenario"]:
+        """Cartesian product of ``SimConfig`` overrides as a scenario
+        list, e.g. ``base.grid(V=[1e2, 1e3, 1e4], L_b=[5.0, 10.0])`` —
+        six scenarios, the last-named axis varying fastest. Each point
+        keeps this scenario's arrivals/fleet/ml composition; a swept
+        ``app_arrival_p`` rebinds the default Bernoulli process per
+        point."""
+        names = list(axes)
+        vals = [list(axes[k]) for k in names]
+        out = []
+        for combo in itertools.product(*vals):
+            cfg = dataclasses.replace(self.config, **dict(zip(names, combo)))
+            out.append(Scenario(config=cfg, arrivals=self._arrivals_arg,
+                                fleet=self.fleet, name=self.name,
+                                ml=self.ml,
+                                ml_kwargs=self.ml_kwargs or None))
+        return out
+
+    def sweep(self, **axes) -> List[SimResult]:
+        """``run_sweep(self.grid(**axes))``; results in ``grid`` order."""
+        return run_sweep(self.grid(**axes))
 
     def __repr__(self):
         flt = self.fleet.name if self.fleet is not None else "paper"
@@ -102,3 +137,30 @@ class Scenario:
                 f"arrivals={self.arrivals.name!r}, fleet={flt!r}, "
                 f"n_users={self.config.n_users}, "
                 f"horizon_s={self.config.horizon_s}{ml})")
+
+
+def run_sweep(scenarios) -> List[SimResult]:
+    """Run many ``Scenario``s, one after another, each as its own
+    ``Scenario.run()``; results in input order. (The JAX package batches
+    same-shape points under one compiled scan; each of its results equals
+    the point's own run, which is what this returns.)"""
+    scenarios = list(scenarios)
+    for sc in scenarios:
+        if not isinstance(sc, Scenario):
+            raise TypeError(
+                f"run_sweep takes Scenarios, got {type(sc).__name__}; "
+                "build one with Scenario(...) or Scenario.grid(...)")
+    return [sc.run() for sc in scenarios]
+
+
+def run_experiment(scenario: Optional[Scenario] = None, *,
+                   ml_backend: Optional[BatchedMLBackend] = None,
+                   **kwargs) -> SimResult:
+    """Run a ``Scenario`` (or build one inline from kwargs) end to end."""
+    if scenario is None:
+        scenario = Scenario(**kwargs)
+    elif kwargs:
+        raise TypeError(
+            f"pass either a Scenario or Scenario kwargs, not both "
+            f"(got {sorted(kwargs)})")
+    return scenario.run(ml_backend=ml_backend)

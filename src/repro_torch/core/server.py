@@ -1,6 +1,6 @@
-"""Asynchronous parameter server (paper Sec. VI).
+"""Parameter servers: asynchronous (paper Sec. VI) and FedAvg.
 
-The counterpart of ``repro/core/server.py``'s ``AsyncParameterServer``:
+The counterpart of ``repro/core/server.py``. ``AsyncParameterServer``:
 clients pull the current global model, train locally with momentum SGD
 (Eq. 1), and push; the server applies the push immediately and advances
 the version counter. HOW a push is applied is delegated to an
@@ -18,7 +18,10 @@ Parameters are a tree of tensors (a flat f32 tensor is a one-leaf tree,
 which is how the LeNet backend keeps them). Each push allocates the new
 parameters and momentum — nothing is updated in place — so parameters a
 client pulled earlier stay unchanged, as in the JAX package.
-``SyncServer`` (FedAvg) is still to port (ROADMAP Queue 1 item 5).
+
+``SyncServer`` is FedAvg's (McMahan et al.): lock-step rounds whose
+submitted models are averaged when the round closes. It runs no kernel:
+the average is a sum of tensors, in the JAX package's order.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.fused_update import check_kernel_mode, fused_weighted_apply
 from ..kernels.fused_update.ops import tree_map
-from .aggregation import AggregationRule, resolve_aggregation
+from .aggregation import AggregationRule, configure_aggregation
 from .staleness import LagTracker, gradient_gap
 
 
@@ -45,17 +48,23 @@ class PushResult:
 class AsyncParameterServer:
     def __init__(self, params: Any, eta: float, beta: float,
                  aggregation: Union[str, AggregationRule] = "replace",
-                 fleet=None, kernel: str = "auto", device="cuda"):
+                 fedasync_alpha: float = 0.6, fedasync_a: float = 0.5,
+                 gap_ref: float = 1.0, fleet=None, kernel: str = "auto",
+                 device="cuda"):
         """``params``: a tree of tensors, moved to ``device`` (CUDA unless
         the caller asks for the CPU; CUDA asked for and absent raises).
         ``aggregation`` is a registry name or ``AggregationRule``
-        instance; ``fleet`` binds the run's ``FleetSpec`` for
-        fleet-conditioned rules."""
+        instance; the knob kwargs (``fedasync_alpha``/``fedasync_a``/
+        ``gap_ref``) construct the matching rule when a name is given with
+        non-default values. ``fleet`` binds the run's ``FleetSpec`` for
+        fleet-conditioned rules (``hetero_aware``)."""
         self.device = resolve_device(device)
         self.params = tree_map(lambda p: p.to(self.device), params)
         self.eta = eta
         self.beta = beta
-        self.rule: AggregationRule = resolve_aggregation(aggregation)
+        self.rule: AggregationRule = configure_aggregation(
+            aggregation, fedasync_alpha=fedasync_alpha,
+            fedasync_a=fedasync_a, gap_ref=gap_ref)
         self.aggregation = self.rule.name
         self.fleet_spec = fleet
         self.kernel = check_kernel_mode(kernel)
@@ -91,3 +100,33 @@ class AsyncParameterServer:
         self.v_norm = float(vn)
         return PushResult(lag=lag, gap_estimate=gap, applied_weight=weight,
                           version=self.lag_tracker.version)
+
+
+class SyncServer:
+    """FedAvg (McMahan et al.): lock-step rounds, average over the cohort.
+
+    ``params`` is a tree of tensors, moved to ``device``. ``aggregate``
+    replaces the global model by the mean of the round's submitted models
+    — ``sum(xs) / n`` per leaf, a left fold from 0 in submission order, as
+    the JAX package sums — and advances the round."""
+
+    def __init__(self, params: Any, device="cuda"):
+        self.device = resolve_device(device)
+        self.params = tree_map(lambda p: p.to(self.device), params)
+        self.round = 0
+        self._pending: list[Any] = []
+
+    def pull(self, client_id=None):
+        return self.params, self.round
+
+    def submit(self, new_params: Any):
+        self._pending.append(new_params)
+
+    def aggregate(self) -> int:
+        if not self._pending:
+            return self.round
+        n = len(self._pending)
+        self.params = tree_map(lambda *xs: sum(xs) / n, *self._pending)
+        self._pending = []
+        self.round += 1
+        return self.round

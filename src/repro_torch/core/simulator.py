@@ -12,9 +12,9 @@ paper's LeNet-5 through a batched ``ml_backend`` (core/realml.py).
 
 Engines (``SimConfig.engine``): the port runs the struct-of-arrays numpy
 engine (core/vector_engine.py), which is what ``"auto"`` resolves to for
-both modes in the JAX package too. The per-user loop oracle (``"loop"``)
-and the accelerator scan (``"jax"``) are still to port (ROADMAP Queue 1
-items 4 and 6) and raise ``NotImplementedError``.
+both modes in the JAX package too. The per-user loop oracle (``"loop"``,
+ROADMAP Queue 1 item 3) and the accelerator scan (``"jax"``, item 6) are
+still to port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,6 +50,8 @@ class SimConfig:
     epsilon: float = 0.05
     eta: float = 0.01
     beta: float = 0.9
+    offline_window: float = 500.0   # paper: 500 s look-ahead
+    offline_resolution: float = 0.01
     seed: int = 0
     ml_mode: str = "trace"          # trace | real
     # how the server APPLIES pushes (core/aggregation.py); "replace" is
@@ -76,10 +78,6 @@ class SimConfig:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; "
                              f"expected one of {ENGINES}")
-        if pol.sync_rounds:
-            raise NotImplementedError(
-                f"policy {pol.name!r} runs lock-step rounds; SyncPolicy and "
-                "SyncServer are still to port (ROADMAP Queue 1 item 4)")
         if self.ml_mode not in ("trace", "real"):
             raise ValueError(f"unknown ml_mode {self.ml_mode!r}")
         if self.kernel not in KERNEL_MODES:
@@ -89,7 +87,7 @@ class SimConfig:
         if resolve_dynamics(self.dynamics).active:
             raise NotImplementedError(
                 "active device dynamics are still to port (ROADMAP Queue 1 "
-                "items 3 and 4); use dynamics='none'")
+                "item 4); use dynamics='none'")
         if self.n_users <= 0:
             raise ValueError(f"n_users must be positive, got {self.n_users}")
         if self.t_d <= 0:
@@ -120,6 +118,9 @@ class SimConfig:
             # negative eta/v_norm would invert Eq. 4's gap monotonicity,
             # which the batched online argmin relies on
             raise ValueError("eta and v_norm0 must be non-negative")
+        if self.offline_window <= 0 or self.offline_resolution <= 0:
+            raise ValueError(
+                "offline_window and offline_resolution must be positive")
         if self.ready_delay < 0:
             raise ValueError(
                 f"ready_delay must be non-negative, got {self.ready_delay}")
@@ -193,14 +194,23 @@ class FederatedSim:
                                       agg=self.agg, fleet=self.fleet_spec)
         if ml_backend is not None:
             ml_backend.bind_fleet(self.fleet_spec, cfg)
-            brule = ml_backend.server.rule
-            if brule is not self.agg and brule.name != self.agg.name:
+            # a sync backend's SyncServer averages and has no rule
+            brule = getattr(ml_backend.server, "rule", None)
+
+            def _knobs(r):   # public instance attrs = the rule's knobs
+                return {k: v for k, v in vars(r).items()
+                        if not k.startswith("_")}
+
+            if brule is not None and brule is not self.agg and \
+                    (brule.name != self.agg.name or
+                     _knobs(brule) != _knobs(self.agg)):
                 raise ValueError(
                     f"ml_backend was built with aggregation rule "
-                    f"{brule.name!r} but the config says {self.agg.name!r}; "
-                    "in real mode the backend's server applies the pushes, "
-                    "so the two must agree (Scenario threads "
-                    "cfg.aggregation automatically)")
+                    f"{brule.name!r} ({_knobs(brule) or 'no knobs'}) but "
+                    f"the config says {self.agg.name!r} "
+                    f"({_knobs(self.agg) or 'no knobs'}); in real mode the "
+                    "backend's server applies the pushes, so the two must "
+                    "agree (Scenario threads cfg.aggregation automatically)")
         # Pre-sample the app arrival schedule, one row per SLOT.
         self.arrivals: ArrivalProcess = resolve_arrival_or_default(
             arrivals, cfg.app_arrival_p)
@@ -228,7 +238,7 @@ class FederatedSim:
         if cfg.engine == "loop":
             raise NotImplementedError(
                 "engine='loop' (the per-user loop oracle) is still to port "
-                "(ROADMAP Queue 1 item 4); use engine='auto'")
+                "(ROADMAP Queue 1 item 3); use engine='auto'")
         if cfg.engine == "jax":
             raise NotImplementedError(
                 "engine='jax' has no port yet; its GPU counterpart is the "
@@ -237,7 +247,7 @@ class FederatedSim:
             raise ValueError(
                 "ml_mode='real' needs a batched ml_backend (Scenario(ml=...) "
                 "builds one); per-user hooks need the loop engine, which "
-                "is still to port")
+                "is still to port (ROADMAP Queue 1 item 3)")
         return "vectorized"
 
     def run(self):

@@ -12,7 +12,10 @@ Real-ML runs are batched (core/realml.py): with an ``ml_backend`` the
 engine snapshots pulls per starting cohort (``pull_batch``) and, when a
 slot's trainers finish, hands the whole finisher cohort to
 ``finish_async_batch`` — one batched local epoch, then the pushes applied
-in user order through the K1 kernel. Accuracy is sampled every
+in user order through the K1 kernel. Under a lock-step policy (``sync``)
+the cohort is trained and submitted instead (``local_train_batch``,
+``submit_batch``), and the round's models are averaged when its last
+trainer finishes (``sync_aggregate``). Accuracy is sampled every
 ``backend.eval_every`` slots.
 
 Equivalence contract: seeded runs reproduce the JAX package's numpy
@@ -27,7 +30,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-from .engine_state import MODE_COOL, MODE_TRAIN, MODE_WAIT, PushLog
+from .engine_state import (MODE_COOL, MODE_TRAIN, MODE_WAIT, PLAN_HOLD,
+                           PushLog)
 from .simulator import SimResult, n_slots, trace_v_norm
 from .staleness import gradient_gap
 
@@ -46,7 +50,7 @@ def _user_tables(sim):
     dev = sim.fleet_spec.device_ids
     return (tab.p_train[dev], tab.t_train[dev], tab.p_idle[dev],
             tab.p_sched[dev], tab.p_app[dev], tab.p_corun[dev],
-            tab.t_corun[dev])
+            tab.t_corun[dev], tab.saving_rate[dev])
 
 
 class _NumpyEngine:
@@ -57,6 +61,9 @@ class _NumpyEngine:
     - ``waiting`` / ``has_app``: this slot's masks (set before dispatch)
     - ``p_if_train`` / ``p_if_idle``: Eq. (10) powers of the train/idle
       branch per user (co-run aware, maintained incrementally)
+    - ``T_COR``, ``SRATE``, ``app_sched``, ``app_choice``: lookahead
+      tables (the offline plan)
+    - ``ar``: every user index (a sync round starts them all)
     - ``begin_training(idx)``: schedule users ``idx`` this slot
     - ``v_norm(ver)``: the momentum norm (the backend's in real mode, the
       trace model otherwise)
@@ -69,7 +76,7 @@ class _NumpyEngine:
         self.n = cfg.n_users
         self.T = n_slots(cfg)
         (self.PT, self.TT, self.PI, self.PS, self.P_APP, self.P_COR,
-         self.T_COR) = _user_tables(sim)
+         self.T_COR, self.SRATE) = _user_tables(sim)
         self.OVERHEAD = self.PS - self.PI
         self.app_sched, self.app_choice = sim.app_sched, sim.app_choice
         self.sched = sim.sched
@@ -77,6 +84,7 @@ class _NumpyEngine:
         self.agg = sim.agg
         self.fleet_spec = sim.fleet_spec
         self.backend = sim.ml_backend     # None for trace runs
+        self.ar = np.arange(self.n)
         self.s = sim.state
         # app-dependent lookups, maintained on app arrival/expiry events
         self.p_if_train = self.PT.copy()
@@ -91,6 +99,31 @@ class _NumpyEngine:
         if self.backend is not None:
             return self.backend.v_norm()
         return trace_v_norm(self.cfg.v_norm0, ver)
+
+    def _finish_cohort(self, fidx, lags):
+        """Real-ML finish of one slot's finisher cohort. Returns the
+        per-finisher ``(gaps, weights)`` for the push log."""
+        b = self.backend
+        cfg = self.cfg
+        if b.sync == self.policy.sync_rounds:
+            if b.sync:
+                trained = b.local_train_batch(fidx, self.s.pulled_at[fidx])
+                return b.submit_batch(fidx, trained, lags, cfg.eta,
+                                      cfg.beta)
+            return b.finish_async_batch(fidx, self.s.pulled_at[fidx], lags,
+                                        cfg.eta, cfg.beta,
+                                        need_gaps=cfg.collect_push_log)
+        # policy/backend round-mode mismatch: nothing trains, as in the
+        # JAX package (its loop oracle finds no matching hook); the log
+        # gets the gaps and the rule's weights all the same
+        vn = b.v_norm()
+        gaps = np.asarray(gradient_gap(vn, lags, cfg.eta, cfg.beta),
+                          dtype=float)
+        if self.policy.sync_rounds:
+            return gaps, np.ones(len(lags))
+        return gaps, np.asarray(self.agg.weight(lags, gaps, vn,
+                                                fleet=self.fleet_spec,
+                                                users=fidx), dtype=float)
 
     def begin_training(self, idx):
         """idx: user indices starting training this slot (corun iff app)."""
@@ -155,6 +188,7 @@ class _NumpyEngine:
                 arrivals = int(np.count_nonzero(to_wait))
                 if arrivals:
                     mode[to_wait] = MODE_WAIT
+                    s.plan[to_wait] = PLAN_HOLD
             self.waiting = mode == MODE_WAIT
             self.has_app = app >= 0
 
@@ -169,23 +203,32 @@ class _NumpyEngine:
                 fidx = np.nonzero(fin)[0]
                 k = len(fidx)
                 if k:
-                    # async finishers bump the version one by one, in user
-                    # order — each sees the versions of earlier finishers
-                    vers = s.version + np.arange(k)
-                    lags = vers - s.pulled_at[fidx]
                     gaps = weights = None
+                    if policy.sync_rounds:
+                        lags = s.version - s.pulled_at[fidx]
+                        if self.backend is None and cfg.collect_push_log:
+                            gaps = gradient_gap(self.v_norm(s.version),
+                                                lags, cfg.eta, cfg.beta)
+                            # FedAvg rounds average; no per-push weight
+                            weights = np.ones(k)
+                    else:
+                        # async finishers bump the version one by one, in
+                        # user order — each sees the versions of earlier
+                        # finishers
+                        vers = s.version + np.arange(k)
+                        lags = vers - s.pulled_at[fidx]
+                        if self.backend is None and cfg.collect_push_log:
+                            vns = self.v_norm(vers)
+                            gaps = gradient_gap(vns, lags, cfg.eta,
+                                                cfg.beta)
+                            weights = self.agg.weight(
+                                lags, gaps, vns, fleet=self.fleet_spec,
+                                users=fidx)
+                        s.version += k
                     if self.backend is not None:
-                        # one batched local epoch + ordered K1 pushes
-                        gaps, weights = self.backend.finish_async_batch(
-                            fidx, s.pulled_at[fidx], lags, cfg.eta,
-                            cfg.beta, need_gaps=cfg.collect_push_log)
-                    elif cfg.collect_push_log:
-                        vns = self.v_norm(vers)
-                        gaps = gradient_gap(vns, lags, cfg.eta, cfg.beta)
-                        weights = self.agg.weight(
-                            lags, gaps, vns, fleet=self.fleet_spec,
-                            users=fidx)
-                    s.version += k
+                        # one batched local epoch + ordered K1 pushes (or
+                        # the round's submissions)
+                        gaps, weights = self._finish_cohort(fidx, lags)
                     s.updates[fidx] += 1
                     mode[fidx] = MODE_COOL
                     s.cooldown[fidx] = cfg.ready_delay
@@ -195,6 +238,12 @@ class _NumpyEngine:
                     if cfg.collect_push_log:
                         push_log.extend(t, fidx, lags, gaps, s.corun[fidx],
                                         weights)
+            if policy.sync_rounds and s.round_open and \
+                    not np.any(mode == MODE_TRAIN):
+                s.round_open = False
+                s.version += 1
+                if self.backend is not None and self.backend.sync:
+                    self.backend.sync_aggregate()
 
             # --- energy accounting (Eq. 10) --------------------------------
             training = mode == MODE_TRAIN

@@ -7,7 +7,7 @@ The paper's asynchronous design is itself the primary straggler
 mitigation — no barrier means a slow island only stales, never stalls.
 These utilities detect islands whose update cadence has collapsed.
 ``SlotClock``, ``FleetMonitor`` and ``ElasticCohort`` are still to port
-with the serving tier (ROADMAP Queue 1 item 10).
+with the serving tier (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 

@@ -41,7 +41,7 @@ class BatchedServer:
         if self.cfg.family in ("audio", "vlm"):
             raise NotImplementedError(
                 f"serving the {self.cfg.family} family (its encoder or "
-                "vision inputs) is not ported yet (ROADMAP Queue 1 item 12)")
+                "vision inputs) is not ported yet (ROADMAP Queue 1 item 7)")
         return {}
 
     def generate(self, prompts, max_new_tokens: int) -> np.ndarray:

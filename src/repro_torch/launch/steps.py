@@ -12,7 +12,7 @@
     The fused-update epilogue alone.
 
 ``kernel`` picks how K2 runs (``kernels.fused_update.fused_update_flat``).
-The prefill/decode steps are still to port (ROADMAP Queue 1 item 12).
+The prefill/decode steps are still to port (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -20,9 +20,11 @@ version on CPU tensors).
 
 Still to port (each raises ``NotImplementedError``): checkpoints
 (``ckpt_dir``/``resume``) and compressed pushes (``compress_ratio > 0``)
-— ROADMAP Queue 1 items 10 and 9; the sharded serving-tier server
-(``n_shards > 0``, item 10); the aggregation rules other than
-``replace`` (item 4).
+— ROADMAP Queue 1 item 5; the sharded serving-tier server
+(``n_shards > 0``, item 8). Every aggregation rule of the JAX trainer
+runs (``replace``, ``fedasync_poly``, ``gap_aware``; ``hetero_aware``
+needs a fleet, which the trainer binds to no server, and raises at the
+first push, as in the JAX trainer).
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --no-smoke \\
         --islands 4 --slots 120
@@ -37,7 +39,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.aggregation import registered_aggregations
 from ..core.energy import APPS, DEVICE_NAMES, TESTBED
 from ..core.lyapunov import OnlineScheduler, UserSlotState
 from ..core.server import AsyncParameterServer
@@ -86,19 +87,15 @@ def _check_ported(icfg: IslandConfig) -> None:
     if icfg.ckpt_dir or icfg.resume:
         raise NotImplementedError(
             "checkpoints (ckpt_dir/resume) are not ported yet (ROADMAP "
-            "Queue 1 item 10)")
+            "Queue 1 item 5)")
     if icfg.compress_ratio > 0:
         raise NotImplementedError(
             "compressed pushes (compress_ratio > 0, ErrorFeedback) are not "
-            "ported yet (ROADMAP Queue 1 item 9)")
+            "ported yet (ROADMAP Queue 1 item 5)")
     if icfg.n_shards > 0:
         raise NotImplementedError(
             "the sharded serving-tier server (n_shards > 0) is not ported "
-            "yet (ROADMAP Queue 1 item 10)")
-    if icfg.aggregation not in registered_aggregations():
-        raise NotImplementedError(
-            f"aggregation {icfg.aggregation!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 4); the port has {registered_aggregations()}")
+            "yet (ROADMAP Queue 1 item 8)")
 
 
 def _to_device(batch, device):

@@ -20,7 +20,7 @@ h reads KV head ``h // G``.
   mask stay on ``_sdpa``; a ``logits_softcap`` is not part of K4's
   contract and raises;
 - ``"chunked"`` and cross-attention (``kv_override``) are still to port
-  (ROADMAP Queue 1 item 12) and raise.
+  (ROADMAP Queue 1 item 7) and raise.
 
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) picks how K4 runs.
 K4 has no backward: a flash call that needs a gradient raises on CUDA.
@@ -117,11 +117,11 @@ def attention(x, p, cfg, positions=None, mask=None, kv_cache=None,
     if kv_override is not None:
         raise NotImplementedError(
             "cross-attention (kv_override, the audio family) is not ported "
-            "yet (ROADMAP Queue 1 item 12)")
+            "yet (ROADMAP Queue 1 item 7)")
     if cfg.attention_impl == "chunked":
         raise NotImplementedError(
             "attention_impl='chunked' is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
+            "item 7)")
     flash = cfg.attention_impl == "flash"
     if flash and cfg.logits_softcap:
         raise NotImplementedError(

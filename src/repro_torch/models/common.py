@@ -41,7 +41,7 @@ def apply_norm(x, p, cfg):
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(
             f"norm_type {cfg.norm_type!r} is not ported yet (ROADMAP "
-            "Queue 1 item 12)")
+            "Queue 1 item 7)")
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
@@ -49,7 +49,7 @@ def norm_params(dim: int, cfg):
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(
             f"norm_type {cfg.norm_type!r} is not ported yet (ROADMAP "
-            "Queue 1 item 12)")
+            "Queue 1 item 7)")
     return {"scale": torch.zeros(dim)}      # rmsnorm stores (scale - 1)
 
 

@@ -71,8 +71,32 @@ def params_from_jax(tree, device="cpu") -> torch.Tensor:
 
 
 def _conv(x, w, b):
-    # HWIO -> OIHW for F.conv2d; x is NCHW
+    """VALID convolution of NCHW ``x`` by the HWIO kernel ``w``.
+
+    On CUDA it is ``conv_im2col``: cuBLAS sums in a fixed order, so two
+    runs on the card give the same bits, and a local epoch stays within
+    1e-5 of the CPU's. cuDNN gives neither for the cohort's grouped
+    convolution (one group a lane under ``vmap``): its default
+    weight-gradient algorithm accumulates with atomics, in an order that
+    varies from run to run, and restricted to deterministic algorithms it
+    takes Winograd transforms whose epoch lands ~50x farther from the
+    CPU's. On the CPU it is ``F.conv2d``, which keeps its speed when
+    several processes share the cores (the im2col route's many small
+    parallel operations do not)."""
+    if x.is_cuda:
+        return conv_im2col(x, w, b)
     return F.conv2d(x, w.permute(3, 2, 0, 1), b)
+
+
+def conv_im2col(x, w, b):
+    """``_conv`` as im2col and one matmul: the (c, kh, kw) patches of ``x``
+    as columns (``F.unfold``), times the kernel as an (o, c*kh*kw)
+    matrix."""
+    kh, kw, c, o = w.shape
+    n, _, h, wd = x.shape
+    cols = F.unfold(x, (kh, kw))                     # (n, c*kh*kw, L)
+    y = w.permute(3, 2, 0, 1).reshape(o, c * kh * kw) @ cols
+    return y.view(n, o, h - kh + 1, wd - kw + 1) + b[:, None, None]
 
 
 def lenet_logits(flat, images):

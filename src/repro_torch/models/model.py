@@ -13,7 +13,7 @@ carry it through the scan with a donated dynamic-update-slice).
 
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) reaches K4 (the
 flash route of ``attention``) and K3 (``ssm.ssd_chunked``). The hybrid
-stack and the MoE block are still to port (ROADMAP Queue 1 item 12).
+stack and the MoE block are still to port (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def _dense_only(cfg):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
+            "item 7)")
 
 
 # ------------------------------------------------------------------ blocks

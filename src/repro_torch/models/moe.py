@@ -1,6 +1,6 @@
 """The dense MLP of the transformer block — the part of
 ``repro/models/moe.py`` the dense family runs. The MoE layers (router,
-dense and sorted dispatch) are still to port (ROADMAP Queue 1 item 12)."""
+dense and sorted dispatch) are still to port (ROADMAP Queue 1 item 7)."""
 from __future__ import annotations
 
 import torch

@@ -19,7 +19,7 @@ anything back, and prefill/decode write the cache tensors in place.
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) picks how K4 (the
 ``attention_impl="flash"`` route) and K3 (the SSD intra-chunk step) run.
 The MoE, hybrid, audio and VLM families are still to port (ROADMAP Queue 1
-item 12). ``params_from_jax`` carries a JAX parameter tree across (the two
+item 7). ``params_from_jax`` carries a JAX parameter tree across (the two
 libraries draw different numbers from one seed).
 """
 from __future__ import annotations
@@ -72,7 +72,7 @@ def build_lm(cfg: ModelConfig, kernel: str = "auto") -> Model:
     if cfg.num_vision_tokens:
         raise NotImplementedError(
             "vision tokens (the VLM family) are not ported yet (ROADMAP "
-            "Queue 1 item 12)")
+            "Queue 1 item 7)")
 
     def loss(params, batch):
         x = _embed_tokens(params, batch["tokens"], cfg)
@@ -156,7 +156,7 @@ def build_model(cfg: ModelConfig, kernel: str = "auto") -> Model:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 12); the port builds {sorted(FAMILIES)}")
+            f"item 7); the port builds {sorted(FAMILIES)}")
     return FAMILIES[cfg.family](cfg, kernel)
 
 

@@ -9,7 +9,7 @@ one K2 pass over the flattened tree (``kernels/fused_update``): the Triton
 kernel on CUDA tensors, its plain version on CPU tensors. The JAX module's
 ``fused_weighted_apply`` is ``kernels.fused_update.fused_weighted_apply``
 here; ``gap_aware_scale`` and ``delay_compensate`` are still to port
-(ROADMAP Queue 1 item 9).
+(ROADMAP Queue 1 item 5).
 """
 from ..kernels.fused_update import fused_momentum_gap_update
 

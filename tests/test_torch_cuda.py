@@ -442,3 +442,119 @@ def test_k3_serving_shape_bf16_and_continuation(cuda_device):
     _assert_close(f2, f_all, 1e-4)
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_chunked(X.requires_grad_(True), dtv, A, Bh, Ch, 16)
+
+
+# ---------------------------------------------------------------------------
+# The aggregation rules through K1, and the LeNet backend's repeatability
+# ---------------------------------------------------------------------------
+def _lenet_backend(rule, kernel, device, seed=0, n=20):
+    from repro_torch.core.fleet import resolve_fleet
+    from repro_torch.core.realml import LeNetBackend
+    b = LeNetBackend(n, n_train=2000, n_test=64, seed=seed, aggregation=rule,
+                     kernel=kernel, device=device)
+    b.bind_fleet(resolve_fleet("paper").build(np.random.default_rng(0), n))
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (1, 3, 16))
+def test_gap_aware_per_push_k1_matches_plain_chain(cuda_device, k):
+    """gap_aware: one one-push K1 launch a push, each weight computed on the
+    card from the previous launch's norm, against the same chain through
+    the plain K1 on the card."""
+    from repro_torch.core.aggregation import GapAwareRule
+    from repro_torch.core.realml import gap_aware_pushes
+    cur, v, trained, _ = _cohort(62006, k, 40 + k, cuda_device)
+    lags = np.arange(k) % 4 + 1
+    uids = np.arange(k)
+    rule = GapAwareRule(0.5)
+    vn0 = torch.linalg.vector_norm(v).reshape(1)
+    launches, pushes = fused_apply_triton.launches, fused_apply_triton.pushes
+    out = gap_aware_pushes(cur, v, trained, lags, vn0, rule, None, uids,
+                           0.01, 0.9, 100.0, "triton")
+    assert fused_apply_triton.launches == launches + k
+    assert fused_apply_triton.pushes == pushes + k
+    ref = gap_aware_pushes(cur, v, trained, lags, vn0, rule, None, uids,
+                           0.01, 0.9, 100.0, "reference")
+    p2, v2, pre, w, fin = (x.cpu().numpy() for x in out)
+    pr, vr, prer, wr, finr = (x.cpu().numpy() for x in ref)
+    np.testing.assert_allclose(p2, pr, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(v2, vr, rtol=1e-6,
+                               atol=1e-6 * (float(np.abs(vr).max()) + 1.0))
+    np.testing.assert_allclose(pre, prer, rtol=1e-5)
+    np.testing.assert_allclose(w, wr, rtol=1e-6)
+    np.testing.assert_allclose(fin, finr, rtol=1e-5)
+    assert w.min() < 1.0 and all(x.is_cuda for x in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ("fedasync_poly", "hetero_aware",
+                                  "gap_aware"))
+def test_lenet_finish_under_rules_matches_plain_k1(cuda_device, rule):
+    """The finish on the card with K1 against the same finish with the
+    plain K1: launches = chunks (fedasync_poly/hetero_aware, non-unit
+    weights from the cohort's device tensor) or = pushes (gap_aware)."""
+    uids = np.arange(20)[::-1].copy()
+    lags = np.arange(20) % 5
+    a = _lenet_backend(rule, "auto", cuda_device)
+    b = _lenet_backend(rule, "reference", cuda_device)
+    for be in (a, b):
+        be.pull_batch(uids, 0)
+    launches, pushes = fused_apply_triton.launches, fused_apply_triton.pushes
+    gaps, weights = a.finish_async_batch(uids, np.zeros(20, np.int64), lags,
+                                         0.01, 0.9)
+    n_launch = fused_apply_triton.launches - launches
+    assert n_launch == (20 if rule == "gap_aware" else 2)   # chunks 16 + 4
+    assert fused_apply_triton.pushes - pushes == 20
+    gr, wr = b.finish_async_batch(uids, np.zeros(20, np.int64), lags, 0.01,
+                                  0.9)
+    assert fused_apply_triton.launches - launches == n_launch
+    assert weights.min() < 1.0
+    np.testing.assert_allclose(weights, wr, rtol=1e-6)
+    np.testing.assert_allclose(gaps, gr, rtol=1e-5, atol=1e-9)
+    pa, pb = a.server.params.cpu().numpy(), b.server.params.cpu().numpy()
+    np.testing.assert_allclose(pa, pb, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_two_card_runs_of_a_lenet_schedule_repeat(cuda_device):
+    """The model's convolutions are im2col and a matmul on the card: two
+    runs of the same short online schedule give the same push log,
+    accuracy and model."""
+    from repro_torch.core import Scenario
+    runs = []
+    for _ in range(2):
+        sim = Scenario(policy="online", ml="lenet", n_users=12,
+                       horizon_s=900, V=5.0, app_arrival_p=0.004, seed=0,
+                       ml_kwargs=dict(n_train=3000, n_test=500,
+                                      eval_every=300)).build()
+        res = sim.run()
+        runs.append((res, sim.ml_backend.server.params.cpu()))
+    (r1, p1), (r2, p2) = runs
+    assert r1.updates > 0
+    assert list(r1.push_log) == list(r2.push_log)
+    assert r1.accuracy == r2.accuracy
+    assert torch.equal(p1, p2)
+
+
+@pytest.mark.cuda
+def test_im2col_conv_on_the_card_matches_the_cpu(cuda_device):
+    """LeNet's logits and loss gradient on the card (im2col + matmul) against
+    the CPU's (F.conv2d), TF32 off."""
+    from repro_torch.models.lenet import init_lenet, lenet_logits, lenet_loss
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((8, 32, 32, 3))
+                             .astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, 10, 8))
+        p = init_lenet(torch.Generator().manual_seed(1))
+        for fn in (lenet_logits, lambda p_, x_: torch.autograd.grad(
+                lenet_loss(p_.requires_grad_(), x_, y.to(x_.device)), p_)[0]):
+            got = fn(p.to(cuda_device), x.to(cuda_device)).cpu()
+            want = fn(p.clone(), x)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                       atol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

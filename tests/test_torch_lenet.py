@@ -25,8 +25,9 @@ from repro.models.lenet import init_lenet as jax_init  # noqa: E402
 from repro.models.lenet import lenet_logits as jax_logits  # noqa: E402
 from repro.models.lenet import lenet_loss as jax_loss  # noqa: E402
 from repro_torch.core.realml import _masked_epoch  # noqa: E402
-from repro_torch.models.lenet import (PARAM_COUNT, init_lenet,  # noqa: E402
-                                      lenet_logits, lenet_loss,
+from repro_torch.models import lenet as lenet_mod  # noqa: E402
+from repro_torch.models.lenet import (PARAM_COUNT, conv_im2col,  # noqa: E402
+                                      init_lenet, lenet_logits, lenet_loss,
                                       params_from_jax, unflatten)
 
 
@@ -125,3 +126,31 @@ def test_masked_epoch_matches():
     got, want = _epoch_pair("float32", seed=1)
     for j, w in enumerate(want):
         np.testing.assert_allclose(got[j], w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,c,h,o", ((4, 3, 32, 6), (5, 6, 14, 16)))
+def test_im2col_conv_matches_conv2d(n, c, h, o):
+    """The card's convolution (im2col + matmul) is F.conv2d's function:
+    outputs and all three gradients at rtol 1e-12 in float64."""
+    rng = np.random.default_rng(n)
+    x, w, b = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in ((n, c, h, h), (5, 5, c, o), (o,)))
+    r = torch.from_numpy(rng.standard_normal((n, o, h - 4, h - 4)))
+    outs = []
+    for conv in (conv_im2col, lambda x, w, b: torch.nn.functional.conv2d(
+            x, w.permute(3, 2, 0, 1), b)):
+        y = conv(x, w, b)
+        outs.append([y] + list(torch.autograd.grad((y * r).sum(), (x, w, b))))
+    for got, want in zip(*outs):
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   want.detach().numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_masked_epoch_im2col_route_matches_in_float64(jax_x64, monkeypatch):
+    """The batched epoch through the card's convolution route equals JAX's
+    in float64, as the CPU's route does."""
+    monkeypatch.setattr(lenet_mod, "_conv", conv_im2col)
+    got, want = _epoch_pair("float64", seed=4)
+    for j, w in enumerate(want):
+        np.testing.assert_allclose(got[j], w, rtol=1e-9, atol=1e-12)

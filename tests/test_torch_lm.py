@@ -62,7 +62,7 @@ def test_configs_match_and_full_width_count():
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.d_ff, full.vocab_size) == \
         (28, 1024, 16, 8, 128, 3072, 151936)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         get_config("zamba2-2.7b")
 
 

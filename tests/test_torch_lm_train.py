@@ -137,10 +137,33 @@ def test_trainer_matches_jax(monkeypatch, fail_p):
     assert b["final_slot"] == a["final_slot"]
 
 
+@pytest.mark.parametrize("aggregation", ("fedasync_poly", "gap_aware"))
+def test_trainer_rules_match_jax(monkeypatch, aggregation):
+    """The aggregation rules beyond ``replace``: each push's host weight
+    (from the server's momentum norm) mixes the model in both trainers."""
+    kw = dict(RUN_KW, slots=60, eval_every=30, aggregation=aggregation)
+    a = jax_run(CFG, JaxIslandConfig(**kw), log=lambda *x: None)
+    b = _port_run(monkeypatch, _jax_params(), **kw)
+    assert b["updates"] == a["updates"] > 0
+    assert b["energy_j"] == pytest.approx(a["energy_j"], rel=1e-9)
+    assert [h[0] for h in b["history"]] == [h[0] for h in a["history"]]
+    np.testing.assert_allclose([h[1] for h in b["history"]],
+                               [h[1] for h in a["history"]], rtol=1e-4)
+    assert b["final_loss"] == pytest.approx(a["final_loss"], rel=1e-4)
+
+
+def test_trainer_hetero_aware_needs_a_fleet_like_jax():
+    kw = dict(RUN_KW, slots=60, aggregation="hetero_aware")
+    with pytest.raises(ValueError, match="FleetSpec"):
+        jax_run(CFG, JaxIslandConfig(**kw), log=lambda *x: None)
+    with pytest.raises(ValueError, match="FleetSpec"):
+        train.run(CFG, train.IslandConfig(**kw), device="cpu",
+                  log=lambda *x: None)
+
+
 @pytest.mark.parametrize("option", (
     dict(ckpt_dir="ckpt"), dict(resume=True), dict(compress_ratio=0.1),
-    dict(n_shards=2), dict(aggregation="gap_aware"),
-    dict(aggregation="fedasync_poly")))
+    dict(n_shards=2)))
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         train.run(CFG, train.IslandConfig(**RUN_KW, **option), device="cpu",
