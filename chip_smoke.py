@@ -13,7 +13,13 @@ schedule digests, accuracy within 0.03), online under the aggregation
 rules gap_aware (one K1 launch a push, beside the same run on the plain
 K1), fedasync_poly and hetero_aware (weights through the cohort K1's
 weight tensor), and the LeNet backend's run-to-run repeatability (its
-im2col-and-matmul convolutions against cuDNN's); drives the
+im2col-and-matmul convolutions against cuDNN's); the per-user loop oracle
+at the main-path setting (LeNet hooks: one client epoch and one one-push
+K1 launch a push, held to the batched run's schedule and accuracy), the
+MLP backend batched at the main path (K1 at 379,774 parameters, held to a
+CPU run), the greedy and eps_greedy schedules (held to their trace-mode
+schedules) and Markov device churn under both dropout rules (the numpy
+engine against the loop engine); drives the
 async federated LM trainer at Qwen3-0.6B's full width (596,049,920
 parameters, K2 on every island step, K1 on every push), holds one
 full-width train step's K2 epilogue against the plain version and
@@ -58,6 +64,15 @@ K1_COHORT_K = (1, 2, 5, 16)     # pushes a launch: 16 is a full LeNet chunk
 K1_WEIGHTS = (1.0, 0.6, 0.05)
 K1_BETA_ETA = ((0.9, 0.01), (0.0, 0.5), (0.99, 1e-4))
 LENET_N = 62006
+MLP_N = 379_774         # models/mlp.py at 32x32x3, hidden (120, 84)
+# the JAX package's "churn" fault scenario (tests/test_dynamics_faults.py)
+# under both dropout rules, its horizon cut to 900 s of the main path
+CHURN = dict(p_off=0.01, p_on=0.05, resume_penalty_s=20.0)
+CHURN_HORIZON_S = 900
+# greedy and eps_greedy: the main path cut to 900 s (the run's time limit)
+GREEDY_HORIZON_S = 900
+# the repeatability phase's immediate runs, cut to fit the time limit
+REPEAT_HORIZON_S = 600
 # Qwen3-0.6B at full width (configs/qwen3_0_6b.py), and its smoke config
 QWEN_N = 596_049_920
 K2_SIZES = (0, 1, 1029, 82304, QWEN_N, 2 ** 24 + 17)
@@ -355,10 +370,9 @@ def phase_k2(fused_update_flat, bound_ms):
     return max_err, times
 
 
-def _time_calls(obj, name, stats):
-    """Replace ``obj.name`` with a wrapper that counts its calls and their
-    host seconds into ``stats[name]``."""
-    fn = getattr(obj, name)
+def _timed(fn, name, stats):
+    """``fn`` wrapped to count its calls and their host seconds into
+    ``stats[name]``."""
     stats[name] = [0, 0.0]
 
     def timed(*a, **k):
@@ -369,14 +383,22 @@ def _time_calls(obj, name, stats):
         return out
 
     timed.__wrapped__ = fn
-    setattr(obj, name, timed)
+    return timed
+
+
+def _time_calls(obj, name, stats):
+    """Replace ``obj.name`` with ``_timed`` of it."""
+    setattr(obj, name, _timed(getattr(obj, name), name, stats))
 
 
 def run_main(Scenario, policy, device, counter, aggregation="replace",
-             kernel="auto", label="", **over):
+             kernel="auto", label="", ml="lenet", engine="auto", chunk=None,
+             **over):
     """One run of the main path (``MAIN``, with ``over`` replacing its
-    entries); returns (result, wall_s, launches, pushes, chunks, stats,
-    the simulator).
+    entries) with the ``ml`` backend on ``engine``, finisher chunks of at
+    most ``chunk`` lanes (the backend's ``COHORT_CHUNK`` unless given);
+    returns (result, wall_s, launches, pushes, chunks, stats, the
+    simulator).
     Prints the host seconds spent in the backend's entry points: the
     cohort finish (local epochs + K1 pushes; ``local_train_batch`` under
     sync), the evaluation, and ``v_norm``, the host sync the online policy
@@ -386,10 +408,14 @@ def run_main(Scenario, policy, device, counter, aggregation="replace",
     gap_aware, in ``gap_aware_pushes`` (the weights computed on the card,
     then the one-push launches)."""
     from repro_torch.core import realml
-    sim = Scenario(policy=policy, ml="lenet", aggregation=aggregation,
-                   kernel=kernel, ml_kwargs=dict(device=device),
+    sim = Scenario(policy=policy, ml=ml, engine=engine,
+                   aggregation=aggregation, kernel=kernel,
+                   ml_kwargs=dict(device=device),
                    **dict(MAIN, **over)).build()
     backend = sim.ml_backend
+    if chunk is not None:
+        backend.COHORT_CHUNK = chunk
+        label += f", chunks of {chunk}"
     entry = "local_train_batch" if backend.sync else "finish_async_batch"
     stats = {}
     for name in (entry, "evaluate", "v_norm"):
@@ -417,8 +443,10 @@ def run_main(Scenario, policy, device, counter, aggregation="replace",
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, pushes = counter.launches, counter.pushes
-    label = (f"{policy} ({aggregation}, kernel={kernel}{label}"
-             f"{''.join(f', {k}={v}' for k, v in over.items())})")
+    label = (f"{policy} ({ml}, {aggregation}, kernel={kernel}, "
+             f"engine {sim.resolve_engine()}{label}"
+             + "".join(f", {k}={v}" for k, v in over.items()
+                       if isinstance(v, (int, float, str))) + ")")
     print(f"{label} on {device}: energy {res.energy_j!r} J, updates "
           f"{res.updates}, pushes {len(res.push_log)}, finisher chunks "
           f"{chunks[0]}, K1 launches {launches} applying {pushes} pushes, "
@@ -628,7 +656,8 @@ def phase_repeat(Scenario, counter):
     convolution kernels of the cuDNN routes. Then the immediate schedule,
     its horizon cut to 900 s, twice through the model's route (equal push
     logs and accuracy) and twice through cuDNN's default algorithms (the
-    spread, and the wall of each)."""
+    spread, and the wall of each), the horizon cut to
+    ``REPEAT_HORIZON_S``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.realml import LeNetBackend, _masked_epoch
@@ -674,16 +703,219 @@ def phase_repeat(Scenario, counter):
         with conv_route(i):
             runs = [run_main(Scenario, "immediate", "cuda", counter,
                              label="" if i == 0 else f", {CONV_ROUTES[i]}",
-                             horizon_s=900)
+                             horizon_s=REPEAT_HORIZON_S)
                     for _ in range(2)]
         (r1, w1, *_), (r2, w2, *_) = runs
         same = list(r1.push_log) == list(r2.push_log) and \
             r1.accuracy == r2.accuracy
-        print(f"repeat, immediate 900 s twice, {CONV_ROUTES[i]}: "
+        print(f"repeat, immediate {REPEAT_HORIZON_S} s twice, "
+              f"{CONV_ROUTES[i]}: "
               f"{'equal' if same else 'DIFFER'}; accuracy {r1.accuracy} / "
               f"{r2.accuracy}; walls {w1!r} / {w2!r} s", flush=True)
         if i == 0:
             assert same, "two card runs of the model's route differ"
+
+
+def accuracy_gap(a, b):
+    """Max |accuracy a - accuracy b| over two runs' samples, which must be
+    taken at the same slots."""
+    assert [s for s, _ in a.accuracy] == [s for s, _ in b.accuracy]
+    return float(np.max(np.abs(np.array([x for _, x in a.accuracy])
+                               - np.array([x for _, x in b.accuracy]))))
+
+
+def phase_loop(Scenario, make_ml_hooks, counter, online):
+    """The per-user loop oracle at the main-path setting (Fig. 5's oracle):
+    ``make_ml_hooks`` LeNet hooks on the card, one client epoch
+    (``Client.local_train``) and one ``AsyncParameterServer.push`` — one
+    one-push K1 launch — a finisher. K1 launches = pushes = updates, and
+    while mean_H == 0 the schedule digest equals the batched online run's.
+
+    A client's epoch on the card equals the batched engine's epoch of a
+    one-lane chunk bit for bit, but a lane of a 16-lane chunk lands ~1 ulp
+    from it (cuBLAS sums a batch of 16 in another order), and over an
+    hour the two f32 trajectories part. So the loop is held to the batched
+    engine run with chunks of one lane: the same push log (gaps
+    included), the same accuracy at every sample and the same final model,
+    bit for bit. Its accuracy distance to the default batched run (chunks
+    of up to 16) is printed. Prints the wall, updates/s and the host
+    seconds in the hooks (``v_norm`` reads the host float the last push
+    left: no device sync). Returns (launches, result)."""
+    from repro_torch.core.realml import LeNetBackend, _masked_epoch
+    b = LeNetBackend(MAIN["n_users"], seed=MAIN["seed"], device="cuda")
+    lanes = np.arange(min(16, MAIN["n_users"]))
+    b.pull_batch(lanes, 0)
+    perms, draw = {}, b._next_perm
+    b._next_perm = lambda uid: perms.setdefault(uid, draw(uid))
+    wide = _masked_epoch(*next(b._cohort_chunks(lanes)), b._flat_x,
+                         b._flat_y, b.eta, b.beta, b.model_loss)
+    lane_ulps = []
+    for j in (0, len(lanes) - 1):
+        one = _masked_epoch(*next(b._cohort_chunks(lanes[j:j + 1])),
+                            b._flat_x, b._flat_y, b.eta, b.beta,
+                            b.model_loss)[0]
+        own = b.clients[j].local_train(b.server.params)[0]
+        assert torch.equal(own, one), "a client epoch != its one-lane chunk"
+        lane_ulps.append(float((wide[j] - one).abs().max()))
+    print(f"loop oracle: a client's epoch equals the batched engine's "
+          f"one-lane chunk bit for bit (lanes 0 and {len(lanes) - 1}); the "
+          f"same lanes of a {len(lanes)}-lane chunk are max |diff| "
+          f"{lane_ulps} from it", flush=True)
+    del b, wide
+    hooks, state = make_ml_hooks(MAIN["n_users"], seed=MAIN["seed"],
+                                 device="cuda")
+    stats = {}
+    for name in ("local_train", "push", "pull", "evaluate", "v_norm"):
+        hooks[name] = _timed(hooks[name], name, stats)
+    torch.cuda.synchronize()
+    counter.launches = counter.pushes = 0
+    t0 = time.perf_counter()
+    res = Scenario(policy="online", engine="loop", ml_mode="real",
+                   **MAIN).run(ml_hooks=hooks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, pushes = counter.launches, counter.pushes
+    print(f"loop oracle, online (lenet hooks) on cuda: energy "
+          f"{res.energy_j!r} J, updates {res.updates}, K1 launches "
+          f"{launches} applying {pushes} pushes, schedule digest "
+          f"{schedule_digest(res.push_log)[:16]}, mean_H {res.mean_H!r}, "
+          f"accuracy {res.accuracy}, wall {wall!r} s, "
+          f"{res.updates / wall!r} updates/s; host seconds (calls): "
+          + ", ".join(f"{k} {v[1]!r} ({v[0]})" for k, v in stats.items()),
+          flush=True)
+    assert launches == pushes == len(res.push_log) == res.updates > 0, \
+        (launches, pushes, res.updates)
+    one, _, one_launches, _, one_chunks, _, sim = run_main(
+        Scenario, "online", "cuda", counter, chunk=1)
+    assert one_launches == one_chunks == one.updates
+    assert list(res.push_log) == list(one.push_log), \
+        "loop and one-lane batched push logs differ"
+    assert res.accuracy == one.accuracy
+    assert torch.equal(state["server"].params,
+                       sim.ml_backend.server.params)
+    if res.mean_H == 0.0 and online.mean_H == 0.0:
+        assert schedule_digest(res.push_log) == \
+            schedule_digest(online.push_log), "loop schedule differs"
+        gap = accuracy_gap(res, online)
+        print(f"loop oracle: the batched run with one-lane chunks gives the "
+              f"same push log, accuracy and final model bit for bit; the "
+              f"default batched run (chunks of up to 16) the same schedule "
+              f"digest, accuracy at most {gap!r} apart", flush=True)
+    else:
+        print("loop oracle: the one-lane batched run is equal bit for bit; "
+              "mean_H > 0, so the default batched run's digest is not "
+              "compared", flush=True)
+    return launches, res
+
+
+def phase_mlp(Scenario, fu, cohort_bytes, counter):
+    """The MLP backend (``ml="mlp"``, 379,774 parameters) batched, online
+    at the main-path setting on the card: K1 launches = finisher chunks,
+    pushes = updates. K1 at n = 379,774 for a chunk of 1 and of 16 pushes
+    against its plain version (the K1 bounds) and timed by CUDA events
+    beside the plain version and the bound (((2+k)*4+8)*n bytes at 3.35
+    TB/s). Then the same run on the CPU (the plain K1): the schedule digest
+    equal while mean_H == 0, accuracy within 0.03 at every sample. Returns
+    (launches, chunks, max_err, {k: (ms, plain_ms, bound_ms)})."""
+    res, wall, launches, pushes, chunks, _, _ = run_main(
+        Scenario, "online", "cuda", counter, ml="mlp")
+    assert launches == chunks > 0, (launches, chunks)
+    assert pushes == len(res.push_log) == res.updates, (pushes, res.updates)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    max_err, times = 0.0, {}
+    for k in (1, 16):
+        cur, v = (torch.randn(MLP_N, generator=gen, device="cuda")
+                  for _ in range(2))
+        trained = torch.randn((k, MLP_N), generator=gen, device="cuda")
+        args = (cur, v, trained, None, 100.0, 0.9)
+        out = fu.fused_apply_cohort(*args, kernel="triton")
+        ref = fu.fused_apply_cohort(*args, kernel="reference")
+        max_err = max(max_err, check_cohort(out, ref))
+        ms = time_ms(lambda: fu.fused_apply_cohort(*args, kernel="triton"),
+                     2000)
+        plain = time_ms(lambda: fu.fused_apply_cohort(
+            *args, kernel="reference"), 200)
+        bound = cohort_bytes(MLP_N, k) / HBM_BPS * 1e3
+        times[k] = (ms, plain, bound)
+        print(f"K1 n={MLP_N} (the MLP) k={k}: matches the plain version; "
+              f"kernel {ms:.6f} ms a launch, plain {plain:.6f} ms, bound "
+              f"{bound:.6f} ms ({cohort_bytes(MLP_N, k)} B at 3.35 TB/s; "
+              f"{bound / ms:.1%} of it)", flush=True)
+    cpu, *_ = run_main(Scenario, "online", "cpu", counter, ml="mlp")
+    if res.mean_H == 0.0 and cpu.mean_H == 0.0:
+        assert schedule_digest(cpu.push_log) == \
+            schedule_digest(res.push_log), "MLP: card and CPU schedules differ"
+        gap = accuracy_gap(cpu, res)
+        print(f"CPU MLP run: same schedule digest "
+              f"{schedule_digest(res.push_log)[:16]}, accuracy at most "
+              f"{gap!r} apart", flush=True)
+        assert gap <= 0.03, gap
+    else:
+        print(f"CPU MLP run: mean_H {cpu.mean_H!r} / {res.mean_H!r} > 0; "
+              "digest not compared", flush=True)
+    return launches, chunks, max_err, times
+
+
+def phase_greedy(Scenario, counter):
+    """greedy and eps_greedy with LeNet on the card at the main-path
+    setting, the horizon cut to ``GREEDY_HORIZON_S``: neither reads the
+    momentum norm, so each real-mode schedule digest must equal the same
+    seed's trace-mode run on the host; K1 launches = finisher chunks,
+    pushes = updates. Prints each one's energy against online's over the
+    same horizon (its trace run: while H == 0 online's real-mode schedule
+    and energy are its trace run's, as the CPU phase and the loop phase
+    show at the full horizon)."""
+    cut = dict(MAIN, horizon_s=GREEDY_HORIZON_S)
+    online = Scenario(policy="online", **cut).run()
+    for policy in ("greedy", "eps_greedy"):
+        res, _, launches, pushes, chunks, _, _ = run_main(
+            Scenario, policy, "cuda", counter,
+            label=f", horizon cut to {GREEDY_HORIZON_S} s",
+            horizon_s=GREEDY_HORIZON_S)
+        trace = Scenario(policy=policy, **cut).run()
+        assert res.updates == trace.updates > 0, policy
+        assert schedule_digest(res.push_log) == \
+            schedule_digest(trace.push_log), f"{policy}: real != trace"
+        assert res.energy_j == trace.energy_j, policy
+        assert launches == chunks and pushes == res.updates, policy
+        print(f"{policy}: real-mode schedule digest "
+              f"{schedule_digest(res.push_log)[:16]} equals the trace "
+              f"run's; energy {res.energy_j!r} J against online's "
+              f"{online.energy_j!r} J (online saves "
+              f"{1.0 - online.energy_j / res.energy_j!r}), updates "
+              f"{res.updates} against {online.updates}, horizon cut to "
+              f"{GREEDY_HORIZON_S} s", flush=True)
+
+
+def phase_churn(Scenario, counter):
+    """Markov device churn (the JAX package's "churn" knobs) with LeNet on
+    the card, online, the horizon cut to ``CHURN_HORIZON_S``: under each
+    dropout rule the numpy engine (batched) and the loop engine (the
+    backend's per-user hooks) take the same schedule — digest of (t,
+    user, lag, corun); the gaps carry each engine's norms — and count the
+    same mid-training drops, more than none."""
+    from repro_torch.core import MarkovChurnDynamics
+    for dropout in ("lose", "resume"):
+        runs = {}
+        for engine in ("vectorized", "loop"):
+            dyn = MarkovChurnDynamics(dropout=dropout, **CHURN)
+            runs[engine] = run_main(
+                Scenario, "online", "cuda", counter, engine=engine,
+                label=f", markov churn {CHURN}, dropout={dropout}, horizon "
+                f"cut to {CHURN_HORIZON_S} s", dynamics=dyn,
+                horizon_s=CHURN_HORIZON_S)
+        (vec, _, vl, vp, vc, _, _), (loop, _, ll, lp, _, _, _) = \
+            runs["vectorized"], runs["loop"]
+        assert vec.drops == loop.drops > 0, (vec.drops, loop.drops)
+        assert vec.updates == loop.updates > 0
+        assert schedule_digest(vec.push_log) == \
+            schedule_digest(loop.push_log), f"churn {dropout}: engines differ"
+        assert vl == vc and ll == lp == loop.updates
+        print(f"churn ({dropout}, horizon cut to {CHURN_HORIZON_S} s): "
+              f"numpy and loop engines take the same schedule "
+              f"{schedule_digest(vec.push_log)[:16]}, {vec.drops} drops, "
+              f"{vec.updates} updates; K1 {vl} launches (numpy engine), "
+              f"{ll} (loop)", flush=True)
 
 
 def profile_main(Scenario, horizon_s):
@@ -1263,7 +1495,8 @@ def main() -> int:
     t_start = time.perf_counter()
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, ".kernel_build", "triton"))
-    from repro_torch.core import AsyncParameterServer, Scenario
+    from repro_torch.core import (AsyncParameterServer, Scenario,
+                                  make_ml_hooks)
     from repro_torch.kernels import fused_update
     from repro_torch.kernels.fused_update import (fused_apply_triton,
                                                   fused_update_flat,
@@ -1325,12 +1558,12 @@ def main() -> int:
 
     # ---- 4. the paper's other schedules: immediate, offline, sync -------
     t = time.perf_counter()
-    card = phase_schedules(Scenario, fused_apply_triton, online)
+    card_runs = phase_schedules(Scenario, fused_apply_triton, online)
     print(f"schedules phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 5. online, offline and sync again on the CPU ---------------------
     t = time.perf_counter()
-    phase_cpu(Scenario, fused_apply_triton, card)
+    phase_cpu(Scenario, fused_apply_triton, card_runs)
     print(f"CPU phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 5b. the aggregation rules beyond replace -------------------------
@@ -1343,6 +1576,23 @@ def main() -> int:
     t = time.perf_counter()
     phase_repeat(Scenario, fused_apply_triton)
     print(f"repeat phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 5d. the loop oracle, the MLP, greedy/eps_greedy, churn -----------
+    t = time.perf_counter()
+    loop_launches, _ = phase_loop(Scenario, make_ml_hooks,
+                                  fused_apply_triton, online)
+    print(f"loop phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    mlp_launches, mlp_chunks, mlp_err, mlp_times = phase_mlp(
+        Scenario, fused_update, cohort_bytes, fused_apply_triton)
+    max_err = max(max_err, mlp_err)
+    print(f"MLP phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    phase_greedy(Scenario, fused_apply_triton)
+    print(f"greedy phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    phase_churn(Scenario, fused_apply_triton)
+    print(f"churn phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 6. K2 against its plain version ---------------------------------
     t = time.perf_counter()
@@ -1386,7 +1636,11 @@ def main() -> int:
           f"{times['gap_aware'][0]:.6f} ms a push on the card (plain "
           f"{times['gap_aware'][1]:.6f} ms), {gap_launches} one-push "
           f"launches in its online run, {gap_host_ms:.6f} ms of host time a "
-          f"push there", flush=True)
+          f"push there. The loop oracle: {loop_launches} one-push launches. "
+          f"K1 at the MLP's {MLP_N}: a chunk of 1 push "
+          f"{mlp_times[1][0]:.6f} ms, of 16 {mlp_times[16][0]:.6f} ms; "
+          f"{mlp_launches} launches ({mlp_chunks} finisher chunks) in its "
+          f"online run", flush=True)
     print(f"card: {card}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
@@ -1399,6 +1653,11 @@ def main() -> int:
         "pushes": pushes,
         "gap_aware_launches": gap_launches,
         "gap_aware_ms_per_push": times["gap_aware"][0],
+        "loop_launches": loop_launches,
+        "mlp_launches": mlp_launches,
+        "mlp_ms": {str(k): v[0] for k, v in mlp_times.items()},
+        "mlp_plain_ms": {str(k): v[1] for k, v in mlp_times.items()},
+        "mlp_bound_ms": {str(k): v[2] for k, v in mlp_times.items()},
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

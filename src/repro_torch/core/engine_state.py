@@ -18,8 +18,11 @@ from typing import Any
 
 import numpy as np
 
-# Shared state encodings of the engine (re-exported by core/policies.py).
-MODE_WAIT, MODE_TRAIN, MODE_COOL = 0, 1, 2
+# Shared state encodings of the engines. MODE_OFF is the device-dynamics
+# parking state (core/dynamics.py): a user whose device churned off draws
+# no power and re-enters the arrival process through cooldown when it
+# comes back up.
+MODE_WAIT, MODE_TRAIN, MODE_COOL, MODE_OFF = 0, 1, 2, 3
 # Offline (Alg. 1) per-user plan codes: hold until the next plan, wait to
 # co-run, train now separately.
 PLAN_HOLD, PLAN_CORUN, PLAN_SEP = 0, 1, 2
@@ -35,7 +38,7 @@ class EngineState:
     """The one state container threaded through the engine.
 
     Per-user struct-of-arrays (``(n_users,)`` each): ``mode`` (wait / train /
-    cool), ``cooldown`` slots left, current ``app`` id (-1 = none), remaining
+    cool / off), ``cooldown`` slots left, current ``app`` id (-1 = none), remaining
     app / training seconds, ``corun`` flag of the current/last training run,
     the accumulated Eq. (12) ``idle_gap``, the global ``pulled_at`` version,
     per-user ``energy`` (J) and ``updates``, and the offline policy's
@@ -45,9 +48,12 @@ class EngineState:
     Scheduler / server scalars: global model ``version``, ``in_flight``
     trainer count, ``round_open`` (a sync round is training), the Lyapunov
     queues ``Q`` / ``H`` (Eqs. 15/16) plus their
-    horizon sums, and the co-run update counter. ``carry`` is the policy's
-    carry (``Policy.init_carry``), ``agg_carry`` the aggregation rule's
-    (``AggregationRule.init_carry``).
+    horizon sums, and the co-run update counter. ``rng_key`` is the run's
+    raw threefry key ``[0, seed]`` (the JAX ``PRNGKey(seed)`` layout) that
+    ``eps_greedy`` and the ``markov`` dynamics split once a slot.
+    ``carry`` is the policy's carry (``Policy.init_carry``), ``agg_carry``
+    the aggregation rule's (``AggregationRule.init_carry``) and ``dyn``
+    the dynamics' per-user state (``DeviceDynamics.init_state``).
     """
 
     # ---- per-user struct-of-arrays -----------------------------------
@@ -71,16 +77,20 @@ class EngineState:
     sum_Q: Any = 0.0
     sum_H: Any = 0.0
     corun_updates: Any = 0
-    # ---- policy / rule carries ----------------------------------------
+    # ---- rng / policy, rule and dynamics carries ----------------------
+    rng_key: Any = None
     carry: Any = None
     agg_carry: Any = None
+    dyn: Any = None
 
     @classmethod
-    def init(cls, n: int, cfg, policy, agg=None, fleet=None) -> "EngineState":
+    def init(cls, n: int, cfg, policy, agg=None, fleet=None,
+             dynamics=None) -> "EngineState":
         """Fresh state for an ``n``-user run: everyone cooling with zero
         cooldown (first slot moves the fleet to waiting), no apps, v0
         model, empty queues. ``agg``/``fleet`` initialize the rule carry;
-        ``None`` leaves it empty."""
+        ``dynamics`` (a resolved DeviceDynamics) the churn state; ``None``
+        or an inactive dynamics leaves it empty."""
         return cls(
             mode=np.full(n, MODE_COOL, dtype=np.int8),
             cooldown=np.zeros(n, dtype=np.int64),
@@ -93,15 +103,19 @@ class EngineState:
             energy=np.zeros(n),
             updates=np.zeros(n, dtype=np.int64),
             plan=np.full(n, PLAN_HOLD, dtype=np.int8),
+            rng_key=np.array([0, cfg.seed & 0xFFFFFFFF], dtype=np.uint32),
             carry=policy.init_carry(n, cfg),
             agg_carry=None if agg is None else agg.init_carry(n, cfg, fleet),
+            dyn=None if dynamics is None or not dynamics.active
+            else dynamics.init_state(n, cfg, fleet),
         )
 
 
 class PushLog:
     """Fixed-width push-log accumulator with the historical dict schema.
 
-    The engine appends one columnar block per slot (``extend``). The
+    The numpy engine appends one columnar block per slot (``extend``),
+    the loop oracle one event per push (``append``). The
     sequence interface decodes per-event dicts
     ``{"t", "user", "lag", "gap", "corun", "weight"}`` lazily, so holding
     a fleet-scale log costs six flat arrays, not O(pushes) dicts;
@@ -117,6 +131,17 @@ class PushLog:
         self._cache = None
 
     # ------------------------------------------------------------- builders
+    def append(self, t, user, lag, gap, corun, weight=1.0) -> None:
+        """One event (the loop oracle's per-push path)."""
+        self._parts.append((np.asarray([t], np.int64),
+                            np.asarray([user], np.int64),
+                            np.asarray([lag], np.int64),
+                            np.asarray([gap], np.float64),
+                            np.asarray([corun], bool),
+                            np.asarray([weight], np.float64)))
+        self._n += 1
+        self._cache = None
+
     def extend(self, t, users, lags, gaps, corun, weights=None) -> None:
         """One slot's finisher cohort (the numpy engine's path); ``t`` is
         the scalar slot, the rest ``(k,)`` arrays in user order.

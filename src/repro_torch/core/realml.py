@@ -24,6 +24,13 @@ each push is its own one-push K1 launch whose weight is computed on the
 device from the previous launch's norm (``scan_weight``, the rule's tensor
 twin), with no host copy between pushes.
 
+The loop oracle drives the same backend per user through ``hooks()``
+(``make_ml_hooks`` builds a LeNet backend and returns them): ``pull`` the
+server's parameters, ``local_train`` one epoch on the user's ``Client``
+(core/client.py), ``push`` through ``AsyncParameterServer.push`` — one
+one-push K1 launch a push. ``MLPBackend`` (``ml="mlp"``) is the second
+model: a dense MLP of 379,774 parameters through the same paths.
+
 With ``sync=True`` (the ``sync`` policy, FedAvg) the server is a
 ``SyncServer``: each finisher cohort is trained from the round's pulled
 model and submitted (``local_train_batch``, ``submit_batch``), and the
@@ -37,9 +44,11 @@ bit.
 Randomness: the initial parameters come from a ``torch.Generator`` seeded
 with the run seed, and each client's minibatch permutations from its own
 generator seeded with ``hash(client_id) % 2**31`` (the JAX client's key
-seed). Both are drawn on the CPU, so a CUDA run and a CPU run of the port
-see the same values. They are not jax's bits: the parity tests carry the
-JAX parameters over (``params_from_jax``) and feed the JAX package's
+seed); the loop's ``Client`` draws through the backend's ``_next_perm``
+too. Both are drawn on the CPU, so a CUDA run and a CPU run of the port
+see the same values. They are not jax's bits (``jax.random.permutation``
+and the ``PRNGKey`` init are not twinned): the parity tests carry the JAX
+parameters over (``params_from_jax``) and feed the JAX package's
 permutations through ``_next_perm``.
 
 Equivalence contract (``tests/test_torch_slice.py``): while H == 0 the
@@ -60,7 +69,9 @@ from ..data.synthetic import cifarlike_dataset, dirichlet_partition
 from ..device import resolve_device
 from ..kernels.fused_update import KMAX, fused_apply_cohort
 from ..models.lenet import init_lenet, lenet_logits, lenet_loss
+from ..models.mlp import init_mlp, mlp_logits, mlp_loss
 from .aggregation import AggregationRule
+from .client import Client
 from .server import AsyncParameterServer, SyncServer
 from .staleness import gradient_gap, momentum_scale
 
@@ -83,6 +94,11 @@ class BatchedMLBackend:
     n_users: int = 0
     sync: bool = False
     eval_every: int = 600
+
+    def hooks(self) -> dict:
+        """The per-user hook dict over this backend's state (the loop
+        engine's real-ML interface, ``FederatedSim(ml_hooks=...)``)."""
+        raise NotImplementedError
 
     def bind_fleet(self, fleet_spec, cfg=None) -> None:
         """Receive the run's ``FleetSpec`` and ``SimConfig``
@@ -232,26 +248,34 @@ class ImageClassifierBackend(BatchedMLBackend):
     model_logits: staticmethod
 
     COHORT_CHUNK = KMAX     # lanes per batched epoch, pushes per K1 launch
-    ALPHA = 100.0       # Dirichlet concentration of the client split
-    NOISE = 8.0         # cifarlike difficulty (JAX backend's default)
 
     def __init__(self, n_users: int, *, sync: bool = False,
                  eta: float = 0.01, beta: float = 0.9,
                  n_train: int = 10000, n_test: int = 2000,
-                 batch_size: int = 20,
+                 alpha: float = 100.0, batch_size: int = 20,
                  aggregation: Union[str, AggregationRule] = "replace",
-                 seed: int = 0, eval_every: int = 600,
-                 kernel: str = "auto", device="cuda"):
+                 noise: float = 8.0, seed: int = 0, eval_every: int = 600,
+                 partition: str = "dirichlet", kernel: str = "auto",
+                 device="cuda"):
+        """``alpha`` is the Dirichlet concentration of the client split,
+        ``noise`` the cifarlike difficulty (8.0: accuracy climbs over many
+        local epochs), ``partition`` ``"dirichlet"`` (the paper's non-IID
+        split) or ``"uniform"`` (IID near-equal shards)."""
         dev = resolve_device(device)
         # construction order (data -> shards -> params -> server) follows
         # the JAX backend's
-        images, labels = cifarlike_dataset(n_train, seed=seed,
-                                           noise=self.NOISE)
+        images, labels = cifarlike_dataset(n_train, seed=seed, noise=noise)
         test_x, test_y = cifarlike_dataset(n_test, seed=seed + 1,
-                                           noise=self.NOISE)
-        # the paper's non-IID split
-        shards = dirichlet_partition(labels, n_users, alpha=self.ALPHA,
-                                     seed=seed)
+                                           noise=noise)
+        if partition == "dirichlet":
+            shards = dirichlet_partition(labels, n_users, alpha=alpha,
+                                         seed=seed)
+        elif partition == "uniform":
+            shards = np.array_split(np.arange(n_train, dtype=np.int64),
+                                    n_users)
+        else:
+            raise ValueError(f"unknown partition {partition!r}; expected "
+                             "'dirichlet' or 'uniform'")
         # the JAX Client's per-client key seed, as a CPU torch.Generator
         self._client_gens = [
             torch.Generator().manual_seed(hash(i) % (2 ** 31))
@@ -290,6 +314,33 @@ class ImageClassifierBackend(BatchedMLBackend):
         # pulled-parameter snapshot per in-flight uid: references to the
         # server's (never mutated) parameter tensors
         self._inflight: list = [self.server.params] * n_users
+        # the loop engine's per-user trainers: views of the flat shards,
+        # permutations through _next_perm (looked up at call time, so a
+        # replaced _next_perm feeds both engines)
+        self.clients = [
+            Client(i, self._flat_x[int(o):int(o + z)],
+                   self._flat_y[int(o):int(o + z)],
+                   self.model_loss, batch_size=batch_size, eta=eta,
+                   beta=beta, next_perm=lambda i=i: self._next_perm(i))
+            for i, (o, z) in enumerate(zip(self._offsets,
+                                           self._shard_sizes))]
+
+    def hooks(self) -> dict:
+        hooks = {
+            "pull": lambda uid: self.server.pull(uid)[0],
+            "local_train":
+                lambda uid, params: self.clients[uid].local_train(params)[0],
+            "evaluate": self.evaluate,
+            "v_norm": self.v_norm,
+            "eval_every": self.eval_every,
+        }
+        if self.sync:
+            hooks["sync_submit"] = self.server.submit
+            hooks["sync_aggregate"] = self.server.aggregate
+        else:
+            # AsyncParameterServer.push: one one-push K1 launch
+            hooks["push"] = lambda uid, params: self.server.push(uid, params)
+        return hooks
 
     def bind_fleet(self, fleet_spec, cfg=None) -> None:
         """Bind the run's FleetSpec: the async server's host weights and
@@ -428,9 +479,13 @@ class ImageClassifierBackend(BatchedMLBackend):
         return 0.0 if self.sync else float(self.server.v_norm)
 
     @torch.no_grad()
-    def evaluate(self) -> float:
-        logits = self.model_logits(self.server.params, self._test_x)
+    def accuracy(self, params) -> float:
+        """Test accuracy of flat ``params``."""
+        logits = self.model_logits(params, self._test_x)
         return float((logits.argmax(-1) == self._test_y).float().mean())
+
+    def evaluate(self) -> float:
+        return self.accuracy(self.server.params)
 
 
 @register_ml_backend
@@ -443,3 +498,36 @@ class LeNetBackend(ImageClassifierBackend):
     model_init = staticmethod(init_lenet)
     model_loss = staticmethod(lenet_loss)
     model_logits = staticmethod(lenet_logits)
+
+
+@register_ml_backend
+class MLPBackend(ImageClassifierBackend):
+    """The second real model (``Scenario(ml="mlp")``): a dense MLP
+    (``models/mlp.py``, 379,774 parameters) through the same batched
+    epoch, K1 finish and loop hooks as LeNet."""
+
+    name = "mlp"
+    model_init = staticmethod(init_mlp)
+    model_loss = staticmethod(mlp_loss)
+    model_logits = staticmethod(mlp_logits)
+
+
+def make_ml_hooks(n_users: int, *, sync: bool = False, eta: float = 0.01,
+                  beta: float = 0.9, n_train: int = 10000,
+                  n_test: int = 2000, alpha: float = 100.0,
+                  batch_size: int = 20,
+                  aggregation: Union[str, AggregationRule] = "replace",
+                  noise: float = 8.0, seed: int = 0, eval_every: int = 600,
+                  kernel: str = "auto", device="cuda"):
+    """The loop engine's real-ML entry point (Fig. 5's oracle): a
+    ``LeNetBackend`` and its per-user hooks. Returns (hooks, {"server",
+    "clients", "accuracy": fn(params) -> acc, "backend"})."""
+    backend = LeNetBackend(n_users, sync=sync, eta=eta, beta=beta,
+                           n_train=n_train, n_test=n_test, alpha=alpha,
+                           batch_size=batch_size, aggregation=aggregation,
+                           noise=noise, seed=seed, eval_every=eval_every,
+                           kernel=kernel, device=device)
+    return backend.hooks(), {"server": backend.server,
+                             "clients": backend.clients,
+                             "accuracy": backend.accuracy,
+                             "backend": backend}

@@ -14,6 +14,12 @@ simulator::
                  V=5.0, app_arrival_p=0.004,
                  ml_kwargs=dict(device="cpu")).run()
 
+    # Fig. 5's oracle: per-user hooks on the loop engine
+    from repro_torch.core import make_ml_hooks
+    r = Scenario(policy="online", engine="loop", ml_mode="real",
+                 n_users=25, horizon_s=3600, V=5.0,
+                 app_arrival_p=0.004).run(ml_hooks=make_ml_hooks(25)[0])
+
     # the offline schedule (Alg. 1) over a knob grid, one run a point
     results = Scenario(policy="offline", n_users=25,
                        horizon_s=3600).sweep(L_b=[5.0, 1000.0])
@@ -42,7 +48,7 @@ class Scenario:
     """One composed experiment: resolved policy/arrivals/fleet + SimConfig.
 
     ``ml`` couples the schedule to real training: a ``core.realml``
-    backend name (``"lenet"``) or ``BatchedMLBackend`` instance — setting
+    backend name (``"lenet"``, ``"mlp"``) or ``BatchedMLBackend`` instance — setting
     it forces ``ml_mode="real"``, and ``build()`` constructs a fresh
     backend per run (seeded from ``SimConfig.seed``, round mode matched to
     the policy's ``sync_rounds``, training eta/beta defaulting to the
@@ -87,11 +93,18 @@ class Scenario:
         self.fleet = None if fleet is None else resolve_fleet(fleet)
         self.name = name if name is not None else self.policy.name
 
-    def build(self, ml_backend: Optional[BatchedMLBackend] = None
+    def build(self, ml_hooks: Optional[dict] = None,
+              ml_backend: Optional[BatchedMLBackend] = None
               ) -> FederatedSim:
-        """Construct the (seeded) simulator without running it."""
+        """Construct the (seeded) simulator without running it.
+        ``ml_hooks`` (per-user hooks, ``make_ml_hooks``) run on the loop
+        engine; pass them only to scenarios without ``ml=``."""
         backend = ml_backend
         if backend is None and self.ml is not None:
+            if ml_hooks is not None:
+                raise ValueError(
+                    "Scenario has ml= set; pass ml_hooks only to scenarios "
+                    "without a backend")
             kw = dict(self.ml_kwargs)
             kw.setdefault("eta", self.config.eta)
             kw.setdefault("beta", self.config.beta)
@@ -100,12 +113,13 @@ class Scenario:
             kw.setdefault("kernel", self.config.kernel)
             backend = make_backend(self.ml, self.config.n_users,
                                    sync=self.policy.sync_rounds, **kw)
-        return FederatedSim(self.config, ml_backend=backend,
+        return FederatedSim(self.config, ml_hooks=ml_hooks,
+                            ml_backend=backend,
                             arrivals=self.arrivals, fleet=self.fleet)
 
-    def run(self, ml_backend: Optional[BatchedMLBackend] = None
-            ) -> SimResult:
-        return self.build(ml_backend=ml_backend).run()
+    def run(self, ml_hooks: Optional[dict] = None,
+            ml_backend: Optional[BatchedMLBackend] = None) -> SimResult:
+        return self.build(ml_hooks=ml_hooks, ml_backend=ml_backend).run()
 
     def grid(self, **axes) -> List["Scenario"]:
         """Cartesian product of ``SimConfig`` overrides as a scenario
@@ -154,6 +168,7 @@ def run_sweep(scenarios) -> List[SimResult]:
 
 
 def run_experiment(scenario: Optional[Scenario] = None, *,
+                   ml_hooks: Optional[dict] = None,
                    ml_backend: Optional[BatchedMLBackend] = None,
                    **kwargs) -> SimResult:
     """Run a ``Scenario`` (or build one inline from kwargs) end to end."""
@@ -163,4 +178,4 @@ def run_experiment(scenario: Optional[Scenario] = None, *,
         raise TypeError(
             f"pass either a Scenario or Scenario kwargs, not both "
             f"(got {sorted(kwargs)})")
-    return scenario.run(ml_backend=ml_backend)
+    return scenario.run(ml_hooks=ml_hooks, ml_backend=ml_backend)

@@ -18,6 +18,10 @@ the cohort is trained and submitted instead (``local_train_batch``,
 trainer finishes (``sync_aggregate``). Accuracy is sampled every
 ``backend.eval_every`` slots.
 
+Device dynamics (core/dynamics.py) run first in a slot, through the same
+host transition as the loop oracle, their effects applied as masked
+writes (see ``_NumpyEngine.run``).
+
 Equivalence contract: seeded runs reproduce the JAX package's numpy
 engine — identical decision sequences, update counts, push logs and
 queue traces in trace mode; in real mode the schedule is identical while
@@ -30,8 +34,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-from .engine_state import (MODE_COOL, MODE_TRAIN, MODE_WAIT, PLAN_HOLD,
-                           PushLog)
+from .engine_state import (MODE_COOL, MODE_OFF, MODE_TRAIN, MODE_WAIT,
+                           PLAN_HOLD, PushLog)
 from .simulator import SimResult, n_slots, trace_v_norm
 from .staleness import gradient_gap
 
@@ -65,8 +69,8 @@ class _NumpyEngine:
       tables (the offline plan)
     - ``ar``: every user index (a sync round starts them all)
     - ``begin_training(idx)``: schedule users ``idx`` this slot
-    - ``v_norm(ver)``: the momentum norm (the backend's in real mode, the
-      trace model otherwise)
+    - ``v_norm(ver)``: the momentum norm (the ``v_norm`` hook — the
+      backend's in real mode — or the trace model)
     - ``sched``: the OnlineScheduler queue-update rule + decide_batch
     """
 
@@ -82,7 +86,9 @@ class _NumpyEngine:
         self.sched = sim.sched
         self.policy = sim.policy
         self.agg = sim.agg
+        self.dynamics = sim.dynamics
         self.fleet_spec = sim.fleet_spec
+        self._v_hook = sim.ml.get("v_norm")
         self.backend = sim.ml_backend     # None for trace runs
         self.ar = np.arange(self.n)
         self.s = sim.state
@@ -95,9 +101,9 @@ class _NumpyEngine:
 
     def v_norm(self, ver):
         """ver may be a scalar or an array of per-finisher versions; the
-        backend's norm is slot-constant and broadcasts."""
-        if self.backend is not None:
-            return self.backend.v_norm()
+        hook's norm is slot-constant and broadcasts."""
+        if self._v_hook is not None:
+            return self._v_hook()
         return trace_v_norm(self.cfg.v_norm0, ver)
 
     def _finish_cohort(self, fidx, lags):
@@ -156,8 +162,42 @@ class _NumpyEngine:
         eval_every = self.backend.eval_every if self.backend is not None \
             else 0
         push_log = PushLog()
+        dynamics = self.dynamics
+        dyn_active = dynamics.active
+        dyn_lose = dynamics.dropout == "lose"
+        up = net_extra = None
 
         for t in range(T):
+            departures = 0
+
+            # --- device dynamics (churn) -----------------------------------
+            # the loop oracle's host transition, effects as masked writes:
+            # waiting -> off is a queue departure, training -> off follows
+            # the dropout rule, cooling parks in off, and recovered users
+            # re-enter through cooldown with the network's extra delay
+            if dyn_active:
+                s.dyn, s.rng_key, eff = dynamics.host_step(
+                    s.dyn, s.rng_key, mode, s.corun, t_d)
+                up = np.asarray(eff.up)
+                net_extra = np.asarray(eff.net_extra)
+                wd = np.asarray(eff.went_down)
+                if wd.any():
+                    dwait = wd & (mode == MODE_WAIT)
+                    dtrain = wd & (mode == MODE_TRAIN)
+                    dcool = wd & (mode == MODE_COOL)
+                    departures = int(np.count_nonzero(dwait))
+                    mode[dwait | dcool] = MODE_OFF
+                    if dyn_lose:
+                        mode[dtrain] = MODE_OFF
+                        s.train_rem[dtrain] = 0.0
+                        s.in_flight -= int(np.count_nonzero(dtrain))
+                    else:       # resume: paused, pays the extra seconds
+                        s.train_rem[dtrain] += float(eff.resume_penalty)
+                ret = np.asarray(eff.went_up) & (mode == MODE_OFF)
+                if ret.any():
+                    mode[ret] = MODE_COOL
+                    s.cooldown[ret] = cfg.ready_delay + net_extra[ret]
+
             # --- app arrivals / progression -------------------------------
             srow = app_sched[t]
             has_app = app >= 0
@@ -196,7 +236,10 @@ class _NumpyEngine:
             served, gap_sum = policy.decide_vectorized(self, t, carry)
 
             # --- training progression --------------------------------------
-            training = mode == MODE_TRAIN
+            # under churn a down trainer is paused (resume rule) and
+            # makes no progress
+            training = (mode == MODE_TRAIN) & up if dyn_active \
+                else mode == MODE_TRAIN
             if training.any():
                 s.train_rem[training] -= t_d
                 fin = training & (s.train_rem <= 0.0)
@@ -231,7 +274,8 @@ class _NumpyEngine:
                         gaps, weights = self._finish_cohort(fidx, lags)
                     s.updates[fidx] += 1
                     mode[fidx] = MODE_COOL
-                    s.cooldown[fidx] = cfg.ready_delay
+                    s.cooldown[fidx] = cfg.ready_delay if not dyn_active \
+                        else cfg.ready_delay + net_extra[fidx]
                     s.idle_gap[fidx] = 0.0
                     s.in_flight -= k
                     s.corun_updates += int(np.count_nonzero(s.corun[fidx]))
@@ -250,12 +294,14 @@ class _NumpyEngine:
             p = np.where(training, self.p_if_train, self.p_if_idle)
             if cfg.include_scheduler_overhead and policy.uses_online_queue:
                 p = np.where(mode == MODE_WAIT, p + self.OVERHEAD, p)
+            if dyn_active:     # a down device draws nothing
+                p = np.where(up, p, 0.0)
             if t_d != 1.0:     # p * 1.0 == p bitwise; skip the alloc
                 p *= t_d
             s.energy += p
 
             # --- queues -----------------------------------------------------
-            sched.update_queues(arrivals, served, gap_sum)
+            sched.update_queues(arrivals, served, gap_sum, departures)
             s.Q, s.H = sched.Q, sched.H
             s.sum_Q += s.Q
             s.sum_H += s.H
@@ -278,4 +324,5 @@ class _NumpyEngine:
             push_log=push_log, accuracy=accuracy,
             mean_Q=s.sum_Q / T if T else 0.0,
             mean_H=s.sum_H / T if T else 0.0,
-            corun_fraction=s.corun_updates / max(updates_total, 1))
+            corun_fraction=s.corun_updates / max(updates_total, 1),
+            drops=dynamics.total_drops(s.dyn))

@@ -558,3 +558,78 @@ def test_im2col_conv_on_the_card_matches_the_cpu(cuda_device):
                                        atol=1e-5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (62006, 379774))     # LeNet, the MLP
+def test_k1_one_push_through_the_server_matches_plain(cuda_device, n):
+    """The loop path's push: ``AsyncParameterServer.push`` launches K1 once
+    a push; p', v' and the norm against the plain K1's chain on the card
+    (the K1 bounds), the server's logged gap the Eq. 4 gap of the plain
+    chain's pre-push norm."""
+    from repro_torch.core.staleness import gradient_gap
+    rng = np.random.default_rng(n)
+    p0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    pushes = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+              .to(cuda_device) for _ in range(4)]
+    srv = AsyncParameterServer(p0, eta=0.01, beta=0.9, device=cuda_device)
+    p, v = srv.params, torch.zeros_like(srv.params)
+    vn = 0.0
+    for j in range(len(pushes)):
+        srv.pull(j)                 # push j then lands with lag j
+    for j, new in enumerate(pushes):
+        before = fused_apply_triton.launches
+        res = srv.push(j, new)
+        assert fused_apply_triton.launches == before + 1
+        assert res.lag == j
+        assert res.gap_estimate == pytest.approx(
+            gradient_gap(vn, j, 0.01, 0.9), rel=1e-5)
+        p, v, sq = fused_apply_flat_ref(p, v, new, 1.0, 100.0, 0.9)
+        vn = float(torch.sqrt(sq))
+        m, v2 = srv.params.cpu().numpy(), srv._v.cpu().numpy()
+        pr, vr = p.cpu().numpy(), v.cpu().numpy()
+        np.testing.assert_allclose(m, pr, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            v2, vr, rtol=1e-6, atol=1e-6 * (float(np.abs(vr).max()) + 1.0))
+        assert srv.v_norm == pytest.approx(vn, rel=1e-5)
+        assert res.version == j + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (1, 16))
+def test_mlp_cohort_finish_equals_chained_one_push_launches(cuda_device, k):
+    """``MLPBackend``'s cohort finish (one K1 launch for the chunk) against
+    the same trained models pushed by k one-push K1 launches: p', v' and
+    every norm bit for bit."""
+    from repro_torch.core.realml import MLPBackend
+    b = MLPBackend(k, n_train=100 * k, n_test=32, device=cuda_device)
+    uids = np.arange(k)[::-1].copy()
+    b.pull_batch(uids, 0)
+    p0, v0 = b.server.params, b.server._v
+    captured = []
+    train = b._train
+
+    def keep(*a):
+        out = train(*a)
+        captured.append(out)
+        return out
+
+    b._train = keep
+    lags = np.arange(k) % 3
+    launches = fused_apply_triton.launches
+    gaps, _ = b.finish_async_batch(uids, np.zeros(k, np.int64), lags, 0.01,
+                                   0.9)
+    assert fused_apply_triton.launches == launches + 1
+    (trained,) = captured
+    assert trained.shape == (k, 379774)
+    p, v, norms = p0, v0, []
+    for j in range(k):
+        p, v, _, n1 = fused_apply_cohort(p, v, trained[j:j + 1], None,
+                                         100.0, 0.9, kernel="triton")
+        norms.append(n1[0])
+    assert torch.equal(b.server.params, p) and torch.equal(b.server._v, v)
+    assert torch.equal(b.server.v_norm.reshape(1), n1[1:])
+    from repro_torch.core.staleness import gradient_gap
+    pre = torch.stack(norms).cpu().numpy().astype(np.float64)
+    assert np.array_equal(gaps, gradient_gap(pre, lags, 0.01, 0.9))
+    assert float(b.server.v_norm) > 0.0

@@ -130,7 +130,7 @@ def test_real_mode_triton_kernel_on_cpu_raises():
         sim.run()
 
 
-@pytest.mark.parametrize("engine", ("loop", "jax"))
+@pytest.mark.parametrize("engine", ("jax",))
 def test_unported_engines_raise(engine):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Scenario(policy="online", engine=engine, **SIM_KW).run()
