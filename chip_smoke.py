@@ -23,7 +23,15 @@ engine against the loop engine); drives the
 async federated LM trainer at Qwen3-0.6B's full width (596,049,920
 parameters, K2 on every island step, K1 on every push), holds one
 full-width train step's K2 epilogue against the plain version and
-profiles a few steps; then serves Qwen3-0.6B (attention_impl="flash": K4
+profiles a few steps; holds K1 on one of the LM's four shards against its
+plain version and times it, then runs the trainer's options at full
+width: the sharded serving-tier server (four shards, one K1 launch a
+shard a push), that server against the unsharded one fed the same pushes
+(p' and v' bit for bit), the push ingestion pipeline with each wire codec
+(a client dying mid-push and recovering, every push applied exactly
+once), compressed pushes (top-k with error feedback, a push timed with
+and without it) and checkpoints with a resumed run (restored models bit
+for bit); then serves Qwen3-0.6B (attention_impl="flash": K4
 on every layer's prefill) and Mamba2-370m (K3 on every layer's prefill)
 at full width through ``launch.serve.BatchedServer``, compares each
 kernel route's prefill logits with the plain route's, and profiles one
@@ -41,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import inspect
 import json
@@ -57,8 +66,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # the paper's Fig. 5 setting at LeNet-5's full width (62,006 parameters,
 # 32x32x3 inputs, local batch 20, 10,000 training images), 25 clients on
-# the Table II devices, one simulated hour
-MAIN = dict(n_users=25, horizon_s=3600, V=5.0, app_arrival_p=0.004, seed=0)
+# the Table II devices, half a simulated hour (one hour until the LM
+# trainer's options joined the run: cut to fit the time limit)
+MAIN = dict(n_users=25, horizon_s=1800, V=5.0, app_arrival_p=0.004, seed=0)
 K1_SIZES = (0, 1, 1029, 62006, 2 ** 24 + 17)
 K1_COHORT_K = (1, 2, 5, 16)     # pushes a launch: 16 is a full LeNet chunk
 K1_WEIGHTS = (1.0, 0.6, 0.05)
@@ -80,6 +90,23 @@ K2_ETA_BETA = ((0.01, 0.9), (0.05, 0.9), (0.1, 0.0))
 # the LM trainer's defaults (4 islands, batch 8, seq 64, 4 local steps),
 # 120 scheduler slots with an evaluation every 60
 LM_RUN = dict(slots=120, eval_every=60, app_arrival_p=0.05)
+# the trainer's options at full width (sharded, compressed, checkpointed):
+# 40 slots, ~10 pushes, so that the sharded server's version ring (every
+# published version kept, 2.22 GiB each, up to its default depth of 64)
+# stays inside the card's 80 GB beside the run's unsharded peak
+LM_OPT = dict(slots=40, eval_every=20, app_arrival_p=0.05)
+LM_SHARDS = 4
+LM_COMPRESS = 0.01
+# the compressed and the checkpointed runs: 20 slots (~5 pushes), the
+# checkpointed one saving every 10 and at the end
+LM_COMPRESS_SLOTS = 20
+LM_CKPT_SLOTS = 20
+LM_CKPT_EVERY = 10
+# (c) and (f): one stream of pulls and pushes (op, client, noise seed);
+# client 2's push comes last (it dies mid-push in the ingestion phase)
+LM_STREAM = (("pull", 0, 0), ("pull", 1, 0), ("pull", 2, 0),
+             ("push", 0, 101), ("pull", 0, 0), ("push", 1, 102),
+             ("push", 0, 103), ("push", 2, 104))
 # H100 SXM peaks (NVIDIA data sheet): HBM3, bf16 tensor cores, f32 CUDA
 # cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -654,10 +681,9 @@ def phase_repeat(Scenario, counter):
     bit for bit, how far are they from the CPU's (max and mean |diff|), and
     what does an epoch take (CUDA events)? A profile of one epoch names the
     convolution kernels of the cuDNN routes. Then the immediate schedule,
-    its horizon cut to 900 s, twice through the model's route (equal push
-    logs and accuracy) and twice through cuDNN's default algorithms (the
-    spread, and the wall of each), the horizon cut to
-    ``REPEAT_HORIZON_S``."""
+    its horizon cut to ``REPEAT_HORIZON_S``, twice through the model's
+    route (equal push logs and accuracy) and twice through cuDNN's
+    default algorithms (the spread, and the wall of each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.realml import LeNetBackend, _masked_epoch
@@ -956,55 +982,28 @@ def profile_main(Scenario, horizon_s):
 
 def run_lm(train, AsyncParameterServer, k1, k2):
     """The LM path on the card: the async federated trainer at Qwen3-0.6B's
-    full width. Counts K1/K2 launches over exactly this run, the pushes
-    and local epochs (with their host seconds: a push's ``float`` of the
-    new momentum norm is the run's per-push host sync, and it waits for
-    the island's queued epoch), the wall time and the peak memory."""
-    from repro_torch.configs import get_config
-    cfg = get_config("qwen3-0.6b")
-    assert cfg.param_count() == QWEN_N, cfg.param_count()
-    icfg = train.IslandConfig(**LM_RUN)
-    stats = {}
-    originals = {(AsyncParameterServer, "push"): AsyncParameterServer.push,
-                 (train.Island, "local_epoch"): train.Island.local_epoch}
-    for obj, name in originals:
-        _time_calls(obj, name, stats)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    k1.launches = k1.pushes = k2.launches = 0
-    t0 = time.perf_counter()
-    out = train.run(cfg, icfg, device="cuda",
-                    log=lambda m: print(f"LM {m}", flush=True))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = (k1.launches, k2.launches)
-    for (obj, name), fn in originals.items():
-        setattr(obj, name, fn)
-    peak = torch.cuda.max_memory_allocated()
+    full width (``LM_RUN``). Counts K1/K2 launches over exactly this run,
+    the pushes and local epochs (with their host seconds: a push's
+    ``float`` of the new momentum norm is the run's per-push host sync,
+    and it waits for the island's queued epoch), the wall time and the
+    peak memory."""
+    out, stats, k1_launches, steps, wall, _ = run_trainer(
+        train, k1, k2, "unsharded",
+        timers=((AsyncParameterServer, "push"),), **LM_RUN)
+    icfg = train.IslandConfig(**dict(LM_OPT, **LM_RUN))
     pushes, push_s = stats["push"]
-    epochs, epoch_s = stats["local_epoch"]
-    losses = [l for _, l, _ in out["history"]] + [out["final_loss"]]
-    steps = launches[1]
-    train_s = push_s + epoch_s
-    print(f"LM qwen3-0.6b ({cfg.param_count()} parameters, {icfg.n_islands} "
-          f"islands, batch {icfg.batch}, seq {icfg.seq}, {icfg.local_steps} "
-          f"local steps, {icfg.slots} slots): updates {out['updates']}, "
-          f"pushes {pushes}, local epochs {epochs}, steps {steps}, K1 "
-          f"launches {launches[0]}, K2 launches {launches[1]}; eval loss "
-          f"first {losses[0]!r} last {losses[-1]!r}; energy "
-          f"{out['energy_j']!r} J; wall {wall!r} s (setup included); "
-          f"host seconds in local_epoch {epoch_s!r} and push {push_s!r} "
-          f"({pushes} host syncs, one per push); {steps / train_s!r} "
-          f"steps/s and {steps * icfg.batch * icfg.seq / train_s!r} tokens/s "
-          f"over those seconds, {steps / wall!r} steps/s over the wall; peak "
-          f"memory {peak / 2 ** 30!r} GiB", flush=True)
-    assert out["updates"] > 0, "the LM trainer made no update"
-    assert out["updates"] == pushes, (out["updates"], pushes)
-    assert all(np.isfinite(l) for l in losses), losses
-    assert launches[0] == pushes == k1.pushes, (launches[0], pushes,
-                                                 k1.pushes)
-    assert launches[1] == icfg.local_steps * epochs, (launches[1], epochs)
-    return out["params"], cfg, launches
+    train_s = push_s + stats["local_epoch"][1]
+    print(f"LM qwen3-0.6b ({QWEN_N} parameters, batch {icfg.batch}, seq "
+          f"{icfg.seq}, {icfg.local_steps} local steps): pushes {pushes} "
+          f"({pushes} host syncs, one per push), steps {steps}; energy "
+          f"{out['energy_j']!r} J; {steps / train_s!r} steps/s and "
+          f"{steps * icfg.batch * icfg.seq / train_s!r} tokens/s over the "
+          f"host seconds in local_epoch and push, {steps / wall!r} steps/s "
+          f"over the wall (setup included)", flush=True)
+    assert out["updates"] == pushes > 0, (out["updates"], pushes)
+    assert k1_launches == pushes == k1.pushes, (k1_launches, pushes,
+                                                k1.pushes)
+    return out["params"], (k1_launches, steps)
 
 
 def lm_batch(cfg, seed):
@@ -1081,6 +1080,378 @@ def profile_lm_steps(params, cfg, make_train_step, n_steps=3):
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"LM profile:   {us * 1e-3:10.3f} ms  {count:6d}x  "
               f"{key[:90]}", flush=True)
+
+
+def live_gib(label) -> float:
+    """Collect garbage, then print and return the device memory that live
+    tensors hold, in GiB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"device memory before {label}: {live!r} GiB allocated", flush=True)
+    return live
+
+
+def peak_gib(reset=False) -> float:
+    """Peak device memory since the last reset, in GiB."""
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if reset:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def run_trainer(train, k1, k2, label, timers=(), **over):
+    """One run of the LM trainer at Qwen3-0.6B's full width with
+    ``LM_OPT`` (``over`` replacing or adding options): counts the K1/K2
+    launches of exactly this run and the calls of ``timers`` (``(obj,
+    name)`` pairs) with their host seconds; prints the wall, the peak
+    memory and the losses. Returns (out, stats, k1 launches, k2 launches,
+    wall, peak GiB)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-0.6b")
+    assert cfg.param_count() == QWEN_N, cfg.param_count()
+    icfg = train.IslandConfig(**dict(LM_OPT, **over))
+    stats = {}
+    originals = {(obj, name): getattr(obj, name)
+                 for obj, name in ((train.Island, "local_epoch"),) + timers}
+    for obj, name in originals:
+        _time_calls(obj, name, stats)
+    peak_gib(reset=True)
+    k1.launches = k1.pushes = k2.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = train.run(cfg, icfg, device="cuda",
+                        log=lambda m: print(f"LM {label}: {m}", flush=True))
+        torch.cuda.synchronize()
+    finally:
+        for (obj, name), fn in originals.items():
+            setattr(obj, name, fn)
+    wall = time.perf_counter() - t0
+    peak = peak_gib()
+    launches = (k1.launches, k2.launches)
+    losses = [l for _, l, _ in out["history"]] + [out["final_loss"]]
+    epochs = stats["local_epoch"][0]
+    print(f"LM {label} (qwen3-0.6b, {icfg.n_islands} islands, "
+          f"{icfg.slots} slots): updates {out['updates']}, local epochs "
+          f"{epochs}, K1 launches {launches[0]} ({k1.pushes} pushes), K2 "
+          f"launches {launches[1]}; eval loss first {losses[0]!r} last "
+          f"{losses[-1]!r}; wall {wall!r} s; host seconds (calls) "
+          + ", ".join(f"{k} {v[1]!r} ({v[0]})" for k, v in stats.items())
+          + f"; peak memory {peak!r} GiB", flush=True)
+    assert all(np.isfinite(l) for l in losses), losses
+    assert launches[1] == icfg.local_steps * epochs, (launches[1], epochs)
+    assert peak * 2 ** 30 < torch.cuda.get_device_properties(0).total_memory
+    return out, stats, launches[0], launches[1], wall, peak
+
+
+def phase_k1_shard(fu, cohort_bytes):
+    """K1 on one shard of the sharded LM server (Qwen3-0.6B in 4 shards:
+    149,012,480 elements, one push) against its plain version on the same
+    CUDA tensors (p' and v' at the reference's bound, the sum of squares
+    at rtol 1e-5), then timed: kernel, plain version, bound."""
+    n = QWEN_N // LM_SHARDS
+    cur, v, new = dev_inputs(n, 21)
+    out = fu.fused_apply_flat(cur, v, new, 0.6, 100.0, 0.9, kernel="triton")
+    ref = fu.fused_apply_flat(cur, v, new, 0.6, 100.0, 0.9,
+                              kernel="reference")
+    err_p, ok_p = max_violation(out[0], ref[0], 1e-6, 1e-6)
+    v_scale = float(ref[1].abs().max()) + 1.0
+    err_v, ok_v = max_violation(out[1], ref[1], 1e-6, 1e-6 * v_scale)
+    assert ok_p and ok_v, (err_p, err_v)
+    np.testing.assert_allclose(float(out[2]), float(ref[2]), rtol=1e-5)
+    del out, ref
+    ms = time_ms(lambda: fu.fused_apply_flat(cur, v, new, 1.0, 100.0, 0.9,
+                                             kernel="triton"), 50)
+    plain = time_ms(lambda: fu.fused_apply_flat(
+        cur, v, new, 1.0, 100.0, 0.9, kernel="reference"), 10)
+    bound = cohort_bytes(n, 1) / HBM_BPS * 1e3
+    print(f"K1 on one LM shard (n={n}, k=1): matches the plain version "
+          f"(max abs err p' {err_p!r}, v' {err_v!r}); kernel {ms:.6f} ms, "
+          f"plain {plain:.6f} ms, bound {bound:.6f} ms "
+          f"({cohort_bytes(n, 1)} B at 3.35 TB/s; {bound / ms:.1%} of it)",
+          flush=True)
+    del cur, v, new
+    torch.cuda.empty_cache()
+    return ms, plain, bound, max(err_p, err_v)
+
+
+def lm_stream_new(flat, seed):
+    """A pushed model: ``flat`` moved by 1e-3-scaled noise drawn on the
+    card from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return flat + 1e-3 * torch.randn(flat.numel(), generator=gen,
+                                     device="cuda")
+
+
+def phase_sharded_server(AsyncParameterServer, ShardedAsyncParameterServer,
+                         params, k1):
+    """The sharded server (4 shards) against the unsharded
+    ``AsyncParameterServer`` at full width, fed the same pushes
+    (``LM_STREAM``, fedasync_poly so every weight is its own): the lags
+    and weights equal, p' and v' equal bit for bit after every push (the
+    same elementwise K1 with the same f32 scalars, one launch a shard
+    against one launch for the whole model), v_norm within rel 1e-4 (the
+    reference's bound: the sums reduce in another order). Returns the
+    sharded server's final flat p' and v' for the ingestion phase."""
+    from repro_torch.kernels.fused_update.ops import flatten_concat
+    core = AsyncParameterServer(params, eta=0.05, beta=0.9,
+                                aggregation="fedasync_poly", device="cuda")
+    shd = ShardedAsyncParameterServer(params, eta=0.05, beta=0.9,
+                                      aggregation="fedasync_poly",
+                                      n_shards=LM_SHARDS, device="cuda")
+    pulled, weights, launches = {}, [], [0, 0]
+    for op, cid, seed in LM_STREAM:
+        if op == "pull":    # the shard tuple: no copy until the push
+            core.pull(cid)
+            pulled[cid] = shd.pull_flat(cid)[0]
+            continue
+        new = lm_stream_new(torch.cat(pulled.pop(cid)), seed)
+        for i, server in enumerate((core, shd)):
+            k1.launches = 0
+            r = server.push(cid, shd.spec.unflatten(new))
+            launches[i] += k1.launches
+            weights.append((r.lag, r.applied_weight))
+        assert weights[-1] == weights[-2], weights[-2:]
+        p_core = flatten_concat(core.params)
+        v_core = flatten_concat(core._v)
+        p_shd = shd.spec.join(shd.snapshot_flat()[0])
+        v_shd = torch.cat([st.momentum for st in shd._shards])
+        assert torch.equal(p_core, p_shd) and torch.equal(v_core, v_shd), \
+            (cid, seed)
+        np.testing.assert_allclose(shd.v_norm, core.v_norm, rtol=1e-4)
+        del p_core, v_core, new
+    shd.assert_consistent()
+    pushes = sum(op == "push" for op, _, _ in LM_STREAM)
+    assert launches == [pushes, LM_SHARDS * pushes], launches
+    print(f"sharded server ({LM_SHARDS} shards) vs AsyncParameterServer at "
+          f"{QWEN_N} parameters, {pushes} fedasync_poly pushes (lag, "
+          f"weight) {weights[::2]}: p' and v' equal bit for bit after every "
+          f"push; v_norm {shd.v_norm!r} vs {core.v_norm!r} (rel "
+          f"{abs(shd.v_norm / core.v_norm - 1)!r}); K1 launches {launches[0]}"
+          f" vs {launches[1]}; peak memory {peak_gib()!r} GiB", flush=True)
+    return p_shd.cpu(), v_shd.cpu()
+
+
+def phase_ingest(serve, FleetMonitor, params, expected):
+    """The ingestion pipeline at full width with each codec: three
+    ``ServeClient``s play ``LM_STREAM`` into a 4-shard server through
+    ``IngestPipeline`` with a ``FleetMonitor``; client 2 dies after two
+    of its four shard packets, is evicted by the sweep, recovers and
+    re-sends the rest; client 0 re-sends a committed push whole. Every
+    push applies exactly once (applied = version = pushes, one duplicate
+    a re-sent packet); under ``NullCodec`` p' and v' equal the sharded
+    server's of the same stream (``expected``, on the host) bit for
+    bit."""
+    results = {}
+    for codec in (serve.NullCodec(), serve.Int8Codec(),
+                  serve.TopKDeltaCodec()):
+        shd = serve.ShardedAsyncParameterServer(
+            params, eta=0.05, beta=0.9, aggregation="fedasync_poly",
+            n_shards=LM_SHARDS, device="cuda")
+        pipe = serve.IngestPipeline(shd, codec=codec,
+                                    monitor=FleetMonitor(timeout_slots=3))
+        clients = {i: serve.ServeClient(i, pipe) for i in range(3)}
+        sent, slot = {}, 0
+        t0 = time.perf_counter()
+        for op, cid, seed in LM_STREAM:
+            slot += 1
+            c = clients[cid]
+            if op == "pull":
+                c.pull()
+                continue
+            new = lm_stream_new(torch.cat(c.base), seed)
+            if cid == 2:    # dies after two of its shard packets
+                pid, acc = c.push(new, slot, shards=[0, 1])
+                pipe.drain()
+                assert pipe.sweep(slot + 10) == {0, 1, 2}
+                assert pipe.parked_clients == {2} and shd.version == 3
+                slot += 11
+                c.resume_push(pid, new, slot)
+            else:
+                pid, acc = c.push(new, slot)
+                assert acc == LM_SHARDS
+            sent[cid] = (pid, new)
+            pipe.drain()
+            del new
+        pid, new = sent[0]      # a full resend of a committed push
+        c0 = clients[0]
+        c0._sent[pid].clear()
+        c0.resume_push(pid, new, slot + 1)
+        pipe.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del sent, new
+        stats = pipe.stats.as_dict()
+        pushes = sum(op == "push" for op, _, _ in LM_STREAM)
+        assert stats["applied"] == shd.version == pushes, stats
+        assert stats["duplicates"] == LM_SHARDS, stats
+        assert stats["evicted"] == 3 and stats["reregistered"] == 1, stats
+        assert pipe.pending_pushes == 0 and not pipe.parked_clients
+        shd.assert_consistent()
+        p = shd.spec.join(shd.snapshot_flat()[0])
+        v = torch.cat([st.momentum for st in shd._shards])
+        assert bool(torch.isfinite(p).all()) and bool(torch.isfinite(v).all())
+        p, v = p.cpu(), v.cpu()
+        diff = float((p - expected[0]).abs().max())
+        if codec.name == "none":
+            assert torch.equal(p, expected[0]) and \
+                torch.equal(v, expected[1]), "NullCodec differs from (c)"
+        results[codec.name] = diff
+        print(f"ingest, codec {codec.name!r}, {LM_SHARDS} shards at "
+              f"{QWEN_N} parameters: {stats}; max |p' - sharded server's| "
+              f"{diff!r}; wall {wall!r} s; peak memory {peak_gib()!r} GiB",
+              flush=True)
+        del shd, pipe, clients, p, v
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_push_with_topk(AsyncParameterServer, ErrorFeedback, params,
+                        ratio, reps=3):
+    """One push at full width, timed on the host around work that ends in
+    a synchronize: ``AsyncParameterServer.push`` alone, and with the
+    trainer's top-k path before it (delta, ``ErrorFeedback.compress``,
+    ``decompress``, the rebuilt model). Medians of ``reps``."""
+    from repro_torch.kernels.fused_update.ops import tree_map
+    server = AsyncParameterServer(params, eta=0.05, beta=0.9,
+                                  device="cuda")
+    ef = ErrorFeedback(ratio)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    new = tree_map(lambda p: p + 1e-3 * torch.randn(
+        p.shape, generator=gen, device="cuda"), params)
+
+    def plain():
+        server.pull(0)
+        server.push(0, new)
+
+    def with_topk():
+        server.pull(0)
+        delta = tree_map(lambda a, b: a - b, new, params)
+        delta = ErrorFeedback.decompress(ef.compress(delta))
+        server.push(0, tree_map(lambda b, d: (b.float() + d).to(b.dtype),
+                                params, delta))
+
+    times = {}
+    for name, fn in (("push", plain), ("push with top-k", with_topk)):
+        ts = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        times[name] = float(np.median(ts[1:]))
+    print(f"a push at {QWEN_N} parameters (host clock to a synchronize, "
+          f"median of {reps} after one warm-up): {times['push']!r} ms "
+          f"alone, {times['push with top-k']!r} ms with top-k at ratio "
+          f"{ratio} and error feedback", flush=True)
+    return times
+
+
+def phase_checkpoint(train, k1, k2):
+    """The trainer with ``ckpt_dir`` in a temporary directory inside the
+    checkout (removed afterwards): a save every ``ckpt_every`` slots and
+    at the end, the restored checkpoint equal to the final model bit for
+    bit, then a resumed run of one slot (too short for a push), whose
+    model equals the saved one bit for bit and whose clock continues."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels.fused_update.ops import tree_leaves
+    build = os.path.join(ROOT, ".kernel_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=build)
+    print(f"checkpoint dir {tmp}: {shutil.disk_usage(tmp).free / 2 ** 30!r}"
+          f" GiB free", flush=True)
+    try:
+        timers = ((train.Checkpointer, "save"), (train.Checkpointer, "wait"))
+        out, stats, *_ = run_trainer(train, k1, k2, "checkpointed",
+                                     timers=timers, slots=LM_CKPT_SLOTS,
+                                     ckpt_dir=tmp, ckpt_every=LM_CKPT_EVERY)
+        steps = sorted(os.listdir(tmp))
+        assert steps == [f"step_{LM_CKPT_EVERY:08d}",
+                         f"step_{LM_CKPT_SLOTS:08d}"], steps
+        template = {"params": out["params"],
+                    "slot": torch.tensor(0, dtype=torch.int32)}
+        t = time.perf_counter()
+        restored, step = Checkpointer(tmp).restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        assert step == LM_CKPT_SLOTS and int(restored["slot"]) == step
+        pairs = list(zip(tree_leaves(restored["params"]),
+                         tree_leaves(out["params"])))
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in pairs)
+        del restored, pairs
+        again, *_ = run_trainer(train, k1, k2, "resumed", slots=1,
+                                ckpt_dir=tmp, resume=True)
+        assert again["final_slot"] == LM_CKPT_SLOTS + 1
+        assert again["updates"] == 0
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(again["params"]), tree_leaves(out["params"])))
+        print(f"checkpoint: saves at {steps}, {stats['save'][0]} save "
+              f"calls ({stats['save'][1]!r} s on the host, the device-to-"
+              f"host copy), waits {stats['wait'][1]!r} s; restore "
+              f"{restore_s!r} s; restored and resumed models equal the "
+              f"saved one bit for bit", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_trainer_options(train, AsyncParameterServer, serve, FleetMonitor,
+                          ErrorFeedback, fused_update, cohort_bytes, k1, k2,
+                          params):
+    """Phase 7b: K1 on one LM shard, the trainer with ``n_shards``
+    (launches = shards x pushes), the sharded server against the
+    unsharded one, the ingestion pipeline, compressed pushes and
+    checkpoints, each printing its seconds. Returns (K1 shard times and
+    error, sharded-run K1 launches, its pushes)."""
+    ShardedAsyncParameterServer = serve.ShardedAsyncParameterServer
+    live_gib("the trainer's options")
+    t = time.perf_counter()
+    shard_k1 = phase_k1_shard(fused_update, cohort_bytes)
+    print(f"K1 shard phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out, stats, sh_launches, _, _, _ = run_trainer(
+        train, k1, k2, "sharded",
+        timers=((ShardedAsyncParameterServer, "push"),), n_shards=LM_SHARDS)
+    sh_pushes = stats["push"][0]
+    assert out["updates"] == sh_pushes > 0, (out["updates"], sh_pushes)
+    assert sh_launches == LM_SHARDS * sh_pushes == k1.pushes, \
+        (sh_launches, sh_pushes)
+    del out
+    print(f"LM sharded phase: {time.perf_counter() - t:.1f} s", flush=True)
+    live_gib("the sharded server phase")
+    t = time.perf_counter()
+    peak_gib(reset=True)
+    expected = phase_sharded_server(AsyncParameterServer,
+                                    ShardedAsyncParameterServer, params, k1)
+    print(f"sharded server phase: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    live_gib("the ingest phase")
+    t = time.perf_counter()
+    phase_ingest(serve, FleetMonitor, params, expected)
+    del expected
+    torch.cuda.empty_cache()
+    print(f"ingest phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out, *_ = run_trainer(
+        train, k1, k2, "compressed",
+        timers=((ErrorFeedback, "compress"), (AsyncParameterServer, "push")),
+        slots=LM_COMPRESS_SLOTS, compress_ratio=LM_COMPRESS)
+    del out
+    time_push_with_topk(AsyncParameterServer, ErrorFeedback, params,
+                        LM_COMPRESS)
+    torch.cuda.empty_cache()
+    print(f"LM compressed phase: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    phase_checkpoint(train, k1, k2)
+    torch.cuda.empty_cache()
+    print(f"LM checkpoint phase: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return shard_k1, sh_launches, sh_pushes
 
 
 def randn(shape, gen, dtype=torch.float32, scale=1.0):
@@ -1501,6 +1872,7 @@ def main() -> int:
     from repro_torch.kernels.fused_update import (fused_apply_triton,
                                                   fused_update_flat,
                                                   fused_update_triton)
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.kernels.fused_update.kernel import (
@@ -1510,6 +1882,9 @@ def main() -> int:
                                                      flash_attention_cuda)
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import build_model, ssm as ssm_model
+    from repro_torch import serve
+    from repro_torch.fault import FleetMonitor
+    from repro_torch.optim import ErrorFeedback
     import triton
 
     def bound_ms(n):    # K2: 3 f32 reads + 2 f32 writes an element + sumsq
@@ -1601,14 +1976,21 @@ def main() -> int:
 
     # ---- 7. the LM path on the card: Qwen3-0.6B at full width --------------
     t = time.perf_counter()
-    params, cfg, lm_launches = run_lm(train, AsyncParameterServer,
-                                      fused_apply_triton, fused_update_triton)
+    params, lm_launches = run_lm(train, AsyncParameterServer,
+                                 fused_apply_triton, fused_update_triton)
+    cfg = get_config("qwen3-0.6b")
     print(f"LM run phase: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     step_err = phase_lm_step(params, cfg, make_train_step,
                              fused_update_triton)
     profile_lm_steps(params, cfg, make_train_step)
     print(f"LM step phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 7b. the trainer's options and the sharded serving tier ---------
+    shard_k1, sh_launches, sh_pushes = phase_trainer_options(
+        train, AsyncParameterServer, serve, FleetMonitor, ErrorFeedback,
+        fused_update, cohort_bytes, fused_apply_triton, fused_update_triton,
+        params)
 
     # ---- 8. serving at full width: Qwen3-0.6B (K4), Mamba2-370m (K3) ----
     t = time.perf_counter()
@@ -1640,7 +2022,11 @@ def main() -> int:
           f"K1 at the MLP's {MLP_N}: a chunk of 1 push "
           f"{mlp_times[1][0]:.6f} ms, of 16 {mlp_times[16][0]:.6f} ms; "
           f"{mlp_launches} launches ({mlp_chunks} finisher chunks) in its "
-          f"online run", flush=True)
+          f"online run. K1 on one of {LM_SHARDS} LM shards "
+          f"({QWEN_N // LM_SHARDS}): kernel {shard_k1[0]:.6f} ms, plain "
+          f"{shard_k1[1]:.6f} ms, bound {shard_k1[2]:.6f} ms "
+          f"({shard_k1[2] / shard_k1[0]:.1%}); {sh_launches} launches for "
+          f"{sh_pushes} pushes in the sharded LM run", flush=True)
     print(f"card: {card}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
@@ -1654,11 +2040,17 @@ def main() -> int:
         "gap_aware_launches": gap_launches,
         "gap_aware_ms_per_push": times["gap_aware"][0],
         "loop_launches": loop_launches,
+        "sharded_launches": sh_launches,
+        "sharded_pushes": sh_pushes,
+        "shard_n": QWEN_N // LM_SHARDS,
+        "shard_ms": shard_k1[0],
+        "shard_plain_ms": shard_k1[1],
+        "shard_bound_ms": shard_k1[2],
         "mlp_launches": mlp_launches,
         "mlp_ms": {str(k): v[0] for k, v in mlp_times.items()},
         "mlp_plain_ms": {str(k): v[1] for k, v in mlp_times.items()},
         "mlp_bound_ms": {str(k): v[2] for k, v in mlp_times.items()},
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, shard_k1[3]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,

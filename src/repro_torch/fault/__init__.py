@@ -1,1 +1,5 @@
-from .monitor import HeartbeatMonitor, StragglerDetector, WorkerStats
+from .monitor import (ElasticCohort, FleetMonitor, HeartbeatMonitor,
+                      SlotClock, StragglerDetector, WorkerStats)
+
+__all__ = ["ElasticCohort", "FleetMonitor", "HeartbeatMonitor",
+           "SlotClock", "StragglerDetector"]

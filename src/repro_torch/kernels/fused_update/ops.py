@@ -152,20 +152,22 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _build(t, it):
+    if isinstance(t, dict):
+        out = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
+
+
 def tree_unflatten(like, leaves):
     """Rebuild ``like``'s structure from ``leaves`` (in ``tree_leaves``
-    order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-
-    return build(like)
+    order). A module-level recursion: a nested recursive closure is a
+    reference cycle, which kept every call's leaves alive until the
+    cyclic garbage collector ran (tens of GiB of the LM trainer's
+    tensors at full width)."""
+    return _build(like, iter(leaves))
 
 
 def tree_map(fn, tree, *rest):

@@ -18,13 +18,16 @@ on ``device`` (CUDA unless the caller asks for the CPU); ``icfg.kernel``
 picks how K1 and K2 run (``auto``: Triton on CUDA tensors, the plain
 version on CPU tensors).
 
-Still to port (each raises ``NotImplementedError``): checkpoints
-(``ckpt_dir``/``resume``) and compressed pushes (``compress_ratio > 0``)
-— ROADMAP Queue 1 item 5; the sharded serving-tier server
-(``n_shards > 0``, item 8). Every aggregation rule of the JAX trainer
-runs (``replace``, ``fedasync_poly``, ``gap_aware``; ``hetero_aware``
-needs a fleet, which the trainer binds to no server, and raises at the
-first push, as in the JAX trainer).
+Pushes can be compressed (``compress_ratio > 0``: top-k with error
+feedback on the island's delta, ``optim/compression.py``); the server
+state is checkpointed every ``ckpt_every`` slots and at the end
+(``ckpt_dir``, the JAX package's on-disk layout) and a run can ``resume``
+from the last checkpoint; ``n_shards > 0`` serves from the sharded
+serving-tier server (``serve/server.py``: one K1 launch a shard a push).
+Every aggregation rule of the JAX trainer runs (``replace``,
+``fedasync_poly``, ``gap_aware``; ``hetero_aware`` needs a fleet, which
+the trainer binds to no server, and raises at the first push, as in the
+JAX trainer).
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --no-smoke \\
         --islands 4 --slots 120
@@ -39,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..checkpoint.checkpointer import Checkpointer
 from ..core.energy import APPS, DEVICE_NAMES, TESTBED
 from ..core.lyapunov import OnlineScheduler, UserSlotState
 from ..core.server import AsyncParameterServer
@@ -48,6 +52,8 @@ from ..fault.monitor import HeartbeatMonitor, StragglerDetector
 from ..kernels.fused_update import KERNEL_MODES
 from ..kernels.fused_update.ops import tree_map
 from ..models import build_model
+from ..optim.compression import ErrorFeedback
+from ..serve.server import ShardedAsyncParameterServer
 from .steps import make_train_step
 
 
@@ -74,7 +80,7 @@ class IslandConfig:
     kernel: str = "auto"             # K1/K2 impl: auto|triton|reference
     n_shards: int = 0                # >0: sharded serving-tier server
     ckpt_dir: Optional[str] = None
-    ckpt_every: int = 50             # slots (read once checkpoints are ported)
+    ckpt_every: int = 50             # slots
     eval_every: int = 50
     resume: bool = False             # restore server params from ckpt_dir
     fail_p: float = 0.0              # per-island per-slot failure probability
@@ -83,19 +89,10 @@ class IslandConfig:
     seed: int = 0
 
 
-def _check_ported(icfg: IslandConfig) -> None:
-    if icfg.ckpt_dir or icfg.resume:
-        raise NotImplementedError(
-            "checkpoints (ckpt_dir/resume) are not ported yet (ROADMAP "
-            "Queue 1 item 5)")
-    if icfg.compress_ratio > 0:
-        raise NotImplementedError(
-            "compressed pushes (compress_ratio > 0, ErrorFeedback) are not "
-            "ported yet (ROADMAP Queue 1 item 5)")
-    if icfg.n_shards > 0:
-        raise NotImplementedError(
-            "the sharded serving-tier server (n_shards > 0) is not ported "
-            "yet (ROADMAP Queue 1 item 8)")
+def _slot_tensor(t: int) -> torch.Tensor:
+    """The checkpoint's ``slot`` leaf: a 0-d int32, as the JAX trainer
+    saves it."""
+    return torch.tensor(t, dtype=torch.int32)
 
 
 def _to_device(batch, device):
@@ -116,6 +113,8 @@ class Island:
                                   seed=1000 + uid)
         self._batches = token_batches(stream, icfg.batch, icfg.seq,
                                       n_batches=10 ** 9, seed=uid)
+        self.ef = (ErrorFeedback(icfg.compress_ratio)
+                   if icfg.compress_ratio > 0 else None)
         self.energy_j = 0.0
         self.updates = 0
         self.busy_slots = 0
@@ -131,18 +130,34 @@ class Island:
 
 
 def run(cfg_model, icfg: IslandConfig, *, device="cuda", log=print):
-    _check_ported(icfg)
     dev = resolve_device(device)
     model = build_model(cfg_model)
     params = model.init(torch.Generator().manual_seed(icfg.seed), device=dev)
-    server = AsyncParameterServer(params, eta=icfg.eta, beta=icfg.beta,
-                                  aggregation=icfg.aggregation,
-                                  kernel=icfg.kernel, device=dev)
+    if icfg.n_shards > 0:
+        # serving-tier store: params partitioned into shards, pushes
+        # applied shard-local (same pull/push protocol)
+        server = ShardedAsyncParameterServer(
+            params, eta=icfg.eta, beta=icfg.beta,
+            aggregation=icfg.aggregation, n_shards=icfg.n_shards,
+            kernel=icfg.kernel, device=dev)
+    else:
+        server = AsyncParameterServer(params, eta=icfg.eta, beta=icfg.beta,
+                                      aggregation=icfg.aggregation,
+                                      kernel=icfg.kernel, device=dev)
     sched = OnlineScheduler(icfg.V, icfg.L_b, icfg.eta, icfg.beta,
                             icfg.epsilon, icfg.slot_seconds)
     islands = [Island(i, cfg_model, icfg, dev)
                for i in range(icfg.n_islands)]
+    ckpt = Checkpointer(icfg.ckpt_dir) if icfg.ckpt_dir else None
     rng = np.random.default_rng(icfg.seed)
+    start_slot = 0
+    if ckpt and icfg.resume and ckpt.latest_step() is not None:
+        restored, _ = ckpt.restore({"params": params,
+                                    "slot": _slot_tensor(0)})
+        server.params = restored["params"]
+        start_slot = int(restored["slot"])
+        log(f"resumed from checkpoint at slot {start_slot}")
+    del params      # the server holds the model (the sharded one a copy)
 
     # fault tolerance: islands heartbeat once per slot while alive; a
     # crashed island stops beating, gets evicted after the timeout, and
@@ -167,10 +182,10 @@ def run(cfg_model, icfg: IslandConfig, *, device="cuda", log=print):
     state = {i.uid: {"mode": "waiting", "left": 0, "pull": None}
              for i in islands}
     history = []
-    for t in range(icfg.slots):
+    for t in range(start_slot, start_slot + icfg.slots):
         clock["t"] = float(t)
         # initial cohort enters the task queue at t=0 (Def. 3: A(0) = n)
-        arrivals = len(islands) if t == 0 else 0
+        arrivals = len(islands) if t == start_slot else 0
         served = 0
         gap_sum = 0.0
         for isl in islands:
@@ -210,6 +225,14 @@ def run(cfg_model, icfg: IslandConfig, *, device="cuda", log=print):
                     new_p, _, _ = isl.local_epoch(pulled_params, pulled_v,
                                                   lag_est)
                     straggle.on_update(isl.uid)
+                    if isl.ef is not None:
+                        delta = tree_map(lambda a, b: a - b, new_p,
+                                         pulled_params)
+                        payload = isl.ef.compress(delta)
+                        delta = ErrorFeedback.decompress(payload)
+                        new_p = tree_map(
+                            lambda b, d: (b.float() + d).to(b.dtype),
+                            pulled_params, delta)
                     server.push(isl.uid, new_p)
                     st["mode"] = "waiting"
                     arrivals += 1
@@ -247,6 +270,8 @@ def run(cfg_model, icfg: IslandConfig, *, device="cuda", log=print):
             isl.energy_j += p * icfg.slot_seconds
         sched.update_queues(arrivals, served, gap_sum)
 
+        if ckpt and t and t % icfg.ckpt_every == 0:
+            ckpt.save({"params": server.params, "slot": _slot_tensor(t)}, t)
         if t and t % icfg.eval_every == 0:
             l = evaluate(server.params)
             history.append((t, l, sum(i.energy_j for i in islands)))
@@ -255,6 +280,11 @@ def run(cfg_model, icfg: IslandConfig, *, device="cuda", log=print):
                 f"updates {server.lag_tracker.version}  "
                 f"Q {sched.Q:.0f} H {sched.H:.1f}")
 
+    if ckpt:
+        # the JAX trainer's final save: step and slot ``icfg.slots``
+        ckpt.save({"params": server.params,
+                   "slot": _slot_tensor(icfg.slots)}, icfg.slots)
+        ckpt.wait()
     return {
         "final_loss": evaluate(server.params),
         "energy_j": sum(i.energy_j for i in islands),
@@ -263,7 +293,7 @@ def run(cfg_model, icfg: IslandConfig, *, device="cuda", log=print):
         "params": server.params,
         "failures": failures,
         "stragglers": sorted(straggle.stragglers()),
-        "final_slot": icfg.slots,
+        "final_slot": start_slot + icfg.slots,
     }
 
 

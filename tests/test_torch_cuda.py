@@ -633,3 +633,82 @@ def test_mlp_cohort_finish_equals_chained_one_push_launches(cuda_device, k):
     pre = torch.stack(norms).cpu().numpy().astype(np.float64)
     assert np.array_equal(gaps, gradient_gap(pre, lags, 0.01, 0.9))
     assert float(b.server.v_norm) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ("replace", "fedasync_poly"))
+def test_sharded_server_k1_per_shard_equals_unsharded(cuda_device, rule):
+    """At LeNet's n = 62,006 in 4 shards: one K1 launch a shard a push,
+    and p' and v' equal the unsharded server's (one launch a push) bit
+    for bit after every push; v_norm within rel 1e-4 (its sums reduce in
+    another order)."""
+    from repro_torch.serve import ShardedAsyncParameterServer
+    n, shards = 62006, 4
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = {"a": torch.randn(n - 6, generator=gen, device="cuda"),
+              "b": torch.randn(2, 3, generator=gen, device="cuda")}
+    core = AsyncParameterServer(params, eta=0.05, beta=0.9,
+                                aggregation=rule, device="cuda")
+    shd = ShardedAsyncParameterServer(params, eta=0.05, beta=0.9,
+                                      aggregation=rule, n_shards=shards,
+                                      device="cuda")
+    core.pull(1)
+    shd.pull(1)
+    for step in range(6):
+        cid = step % 2
+        p, _ = shd.pull(cid)
+        core.pull(cid)
+        new = {k: x + 0.01 * torch.randn(x.shape, generator=gen,
+                                         device="cuda")
+               for k, x in p.items()}
+        before = fused_apply_triton.launches
+        rc = core.push(cid, new)
+        assert fused_apply_triton.launches == before + 1
+        rs = shd.push(cid, new)
+        assert fused_apply_triton.launches == before + 1 + shards
+        assert (rc.lag, rc.applied_weight) == (rs.lag, rs.applied_weight)
+        flat = shd.spec.join(shd.snapshot_flat()[0])
+        mom = torch.cat([st.momentum for st in shd._shards])
+        assert torch.equal(flat, shd.spec.flatten(core.params))
+        assert torch.equal(mom, shd.spec.flatten(core._v))
+        assert shd.v_norm == pytest.approx(core.v_norm, rel=1e-4)
+    shd.assert_consistent()
+    assert int(ticket_counter("cuda")) == 0
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"w": torch.randn(64, 33, generator=gen, device="cuda")
+            .bfloat16(),
+            "v": torch.randn(1000, generator=gen, device="cuda"),
+            "step": torch.tensor(5, dtype=torch.int32, device="cuda")}
+    c = Checkpointer(str(tmp_path))
+    try:
+        c.save(tree, 9)
+    finally:
+        c.wait()
+    template = {k: torch.zeros_like(x) for k, x in tree.items()}
+    restored, step = c.restore(template)
+    assert step == 9
+    for k, x in tree.items():
+        assert restored[k].device == x.device and restored[k].dtype == x.dtype
+        assert torch.equal(restored[k], x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", ((1000, 10), (62006, 620), (2 ** 20, 7)))
+def test_topk_compress_on_cuda_matches_cpu(cuda_device, n, k):
+    """Distinct magnitudes (a permutation of evenly spaced values): the
+    card keeps the same entries as the CPU."""
+    from repro_torch.optim.compression import topk_compress, topk_decompress
+    rng = np.random.default_rng(n)
+    x = (rng.permutation(n) + 1).astype(np.float32) / n
+    x *= rng.choice([-1.0, 1.0], n).astype(np.float32)
+    ours = topk_compress(torch.from_numpy(x).to(cuda_device), k)
+    cpu = topk_compress(torch.from_numpy(x), k)
+    assert ours.values.is_cuda and ours.indices.dtype == torch.int32
+    assert torch.equal(torch.sort(ours.indices.cpu()).values,
+                       torch.sort(cpu.indices).values)
+    assert torch.equal(topk_decompress(ours).cpu(), topk_decompress(cpu))

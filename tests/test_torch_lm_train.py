@@ -11,6 +11,8 @@ JAX initial parameters enter the port through a monkeypatch of the
 ``build_model`` that ``launch/train.py`` calls, whose ``init`` then
 returns them."""
 import dataclasses
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -161,13 +163,137 @@ def test_trainer_hetero_aware_needs_a_fleet_like_jax():
                   log=lambda *x: None)
 
 
-@pytest.mark.parametrize("option", (
-    dict(ckpt_dir="ckpt"), dict(resume=True), dict(compress_ratio=0.1),
-    dict(n_shards=2)))
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        train.run(CFG, train.IslandConfig(**RUN_KW, **option), device="cpu",
-                  log=lambda *a: None)
+# the options' parity runs: 60 slots, 2 islands, a low V and frequent
+# short windows so that ~30 pushes land (the default 0.05 arrival rate
+# gives one in 60 slots)
+OPT_KW = dict(RUN_KW, slots=60, eval_every=20, app_arrival_p=0.3,
+              train_slots=3, V=1.0)
+
+
+def _same_run(a, b, rtol=1e-4):
+    """The decisions equal, the losses at rtol 1e-4 (the trainers' f32
+    forward passes differ by a few ulps a step)."""
+    assert b["updates"] == a["updates"] > 0
+    assert b["energy_j"] == pytest.approx(a["energy_j"], rel=1e-9)
+    assert [h[0] for h in b["history"]] == [h[0] for h in a["history"]]
+    np.testing.assert_allclose([h[1] for h in b["history"]],
+                               [h[1] for h in a["history"]], rtol=rtol)
+    assert b["final_loss"] == pytest.approx(a["final_loss"], rel=rtol)
+    assert b["final_slot"] == a["final_slot"]
+
+
+def _params_close(ours, theirs, rtol=1e-4, atol=1e-5):
+    """Parameters after ~30 pushes: each island's epoch carries the f32
+    ulps of its forward and backward passes."""
+    a, b = tree_leaves(ours), jax.tree.leaves(theirs)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        _close(x, y, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("n_shards", (1, 4))
+def test_trainer_sharded_matches_jax(monkeypatch, n_shards):
+    """``n_shards > 0``: the sharded serving-tier server, against the JAX
+    trainer on its own sharded server."""
+    kw = dict(OPT_KW, n_shards=n_shards)
+    a = jax_run(CFG, JaxIslandConfig(**kw), log=lambda *x: None)
+    b = _port_run(monkeypatch, _jax_params(), **kw)
+    _same_run(a, b)
+    _params_close(b["params"], a["params"])
+
+
+def test_trainer_sharded_equals_unsharded(monkeypatch):
+    """The port's sharded server applies the same elementwise K1 shard by
+    shard, so the trainer's model equals the unsharded run's bit for
+    bit; the norms (and so the Eq. 4 gaps) differ only in the order of
+    their sums, which moves no decision here."""
+    jp = _jax_params()
+    a = _port_run(monkeypatch, jp, **OPT_KW)
+    b = _port_run(monkeypatch, jp, **dict(OPT_KW, n_shards=4))
+    assert b["updates"] == a["updates"] > 0
+    for x, y in zip(tree_leaves(b["params"]), tree_leaves(a["params"])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("ratio", (0.01, 0.2))
+def test_trainer_compressed_matches_jax(monkeypatch, ratio):
+    """``compress_ratio > 0``: each push is the island's delta through
+    top-k with error feedback. The deltas' magnitudes are distinct, but
+    the two trainers' deltas differ by f32 ulps, so an entry next to the
+    k-th magnitude can be kept by one and carried by the other: the
+    losses are held at rtol 1e-4 at both ratios, the parameters at 1%
+    (where no swap shows in this run) at the bound of the other options;
+    at 20% a swap moves a handful of entries by up to the k-th magnitude
+    (10 of 8,192 in one leaf, by up to 3e-4)."""
+    kw = dict(OPT_KW, compress_ratio=ratio)
+    a = jax_run(CFG, JaxIslandConfig(**kw), log=lambda *x: None)
+    b = _port_run(monkeypatch, _jax_params(), **kw)
+    _same_run(a, b)
+    if ratio == 0.01:
+        _params_close(b["params"], a["params"])
+    plain = _port_run(monkeypatch, _jax_params(), **OPT_KW)
+    assert b["final_loss"] != plain["final_loss"]
+
+
+def _steps(path):
+    return sorted(d for d in os.listdir(path) if d.startswith("step_"))
+
+
+def test_trainer_checkpoints_and_resume_match_jax(monkeypatch, tmp_path):
+    """``ckpt_dir``: both trainers save at the same slots (every
+    ``ckpt_every`` and at the end, keep 3) in one layout; each package's
+    checkpoint restores in the other to the saved parameters; and a run
+    resumed from either package's last checkpoint continues like the JAX
+    trainer resumed from the same files."""
+    from repro.checkpoint.checkpointer import restore_pytree as jax_restore
+    from repro_torch.checkpoint.checkpointer import restore_pytree
+
+    jp = _jax_params()
+    kw = dict(OPT_KW, ckpt_every=15)
+    dirs = {k: str(tmp_path / k) for k in ("jax", "port")}
+    a = jax_run(CFG, JaxIslandConfig(**kw, ckpt_dir=dirs["jax"]),
+                log=lambda *x: None)
+    b = _port_run(monkeypatch, jp, **kw, ckpt_dir=dirs["port"])
+    _same_run(a, b)
+    assert _steps(dirs["port"]) == _steps(dirs["jax"]) == [
+        "step_00000030", "step_00000045", "step_00000060"]
+    template = {"params": params_from_jax(jp, "cpu"),
+                "slot": torch.tensor(0, dtype=torch.int32)}
+    jax_template = {"params": jax.tree.map(jnp.asarray, jp),
+                    "slot": jnp.int32(0)}
+    for step in (30, 45, 60):
+        ours, s1 = restore_pytree(template, dirs["port"], step)
+        theirs, s2 = jax_restore(jax_template, dirs["jax"], step)
+        assert s1 == s2 == step and int(ours["slot"]) == step
+        _params_close(ours["params"], theirs["params"])
+        # across packages: each reads the other's files exactly
+        cross, _ = restore_pytree(template, dirs["jax"], step)
+        _params_close(cross["params"], theirs["params"], rtol=0, atol=0)
+        cross_j, _ = jax_restore(jax_template, dirs["port"], step)
+        _params_close(ours["params"], cross_j["params"], rtol=0, atol=0)
+    _params_close(b["params"], a["params"])
+    for name in ("jax", "port"):
+        # resume from a copy of each package's files, in both trainers
+        res = dict(OPT_KW, slots=20, resume=True)
+        for k in ("jax2", "port2"):
+            shutil.copytree(dirs[name], str(tmp_path / k), dirs_exist_ok=True)
+        ra = jax_run(CFG, JaxIslandConfig(**res, ckpt_dir=str(
+            tmp_path / "jax2")), log=lambda *x: None)
+        rb = _port_run(monkeypatch, jp, **res,
+                       ckpt_dir=str(tmp_path / "port2"))
+        assert rb["final_slot"] == ra["final_slot"] == 80
+        _same_run(ra, rb)
+        for k in ("jax2", "port2"):
+            shutil.rmtree(tmp_path / k)
+
+
+def test_resume_without_a_checkpoint_starts_fresh(monkeypatch, tmp_path):
+    jp = _jax_params()
+    a = _port_run(monkeypatch, jp, **dict(OPT_KW, slots=30))
+    b = _port_run(monkeypatch, jp, **dict(OPT_KW, slots=30, resume=True,
+                                          ckpt_dir=str(tmp_path / "c")))
+    assert b["final_slot"] == 30 and b["updates"] == a["updates"]
+    assert _steps(tmp_path / "c") == ["step_00000030"]
 
 
 def test_default_device_without_cuda_raises():
@@ -182,3 +308,13 @@ def test_cli_runs_smoke_on_cpu(capsys):
                 "--steps-per-epoch", "1"])
     out = capsys.readouterr().out
     assert "final_loss=" in out and "updates=" in out
+
+
+def test_cli_options_run_on_cpu(capsys, tmp_path):
+    ckpt = tmp_path / "ckpt"
+    train.main(["--device", "cpu", "--islands", "2", "--slots", "40",
+                "--steps-per-epoch", "1", "--shards", "3", "--compress",
+                "0.05", "--ckpt-dir", str(ckpt)])
+    out = capsys.readouterr().out
+    assert "final_loss=" in out
+    assert _steps(ckpt) == ["step_00000040"]

@@ -144,11 +144,12 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.configs, repro_torch.optim.gap, repro_torch.fault, "
         "repro_torch.launch.steps, repro_torch.launch.train, "
         "repro_torch.launch.serve, repro_torch.models.ssm, "
-        "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan, "
+        "repro_torch.optim, repro_torch.checkpoint, repro_torch.serve\n"
         "from repro_torch.configs import get_config\n"
         "get_config('qwen3-0.6b'), get_config('mamba2-370m')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
@@ -174,5 +175,6 @@ def test_sources_import_neither_jax_nor_repro():
                 else:
                     continue
                 for n in names:
-                    assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    assert n.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                                   "ml_dtypes"), \
                         f"{path} imports {n}"
