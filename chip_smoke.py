@@ -19,7 +19,13 @@ K1 launch a push, held to the batched run's schedule and accuracy), the
 MLP backend batched at the main path (K1 at 379,774 parameters, held to a
 CPU run), the greedy and eps_greedy schedules (held to their trace-mode
 schedules) and Markov device churn under both dropout rules (the numpy
-engine against the loop engine); drives the
+engine against the loop engine); then the device scan engine
+(``engine="jax"``): online's in-slot replay (a CUDA C++ kernel, one
+launch a slot) bit for bit against its plain version, the paper's
+trace-mode experiment at 100,000 users (online, 300 s, at the defaults and
+at L_b = 2.0) against the numpy engine on the host, every policy, rule and
+the churn rules at the engine matrix's setting, and a 16-point V sweep
+run as one batch against its per-point runs; drives the
 async federated LM trainer at Qwen3-0.6B's full width (596,049,920
 parameters, K2 on every island step, K1 on every push), holds one
 full-width train step's K2 epilogue against the plain version and
@@ -38,6 +44,7 @@ kernel route's prefill logits with the plain route's, and profiles one
 prefill and a few decode steps.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py scan      # the scan-engine phase alone
 
 Needs a CUDA device and the CUDA toolkit (exits non-zero without a
 device) and nothing but this repository's ``src/``. Every phase raises on
@@ -83,6 +90,16 @@ CHURN_HORIZON_S = 900
 GREEDY_HORIZON_S = 900
 # the repeatability phase's immediate runs, cut to fit the time limit
 REPEAT_HORIZON_S = 600
+# the scan engine: the replay kernel's sizes and the paper's trace-mode
+# experiment at fleet scale (online, 100,000 users, 300 s), a profiled
+# stretch of it, the dependent-add chain that prices its bound, the engine
+# matrix's setting (tests/test_engine_matrix.py) and a 16-point V sweep
+REPLAY_N = (0, 1, 1029, 100_000)
+FLEET_N, FLEET_HORIZON_S, FLEET_PROFILE_S = 100_000, 300, 8
+DADD_CHAIN = 1_000_000
+COVER = dict(n_users=10, horizon_s=1500, app_arrival_p=0.01, seed=11,
+             V=2000.0, L_b=2.0)
+SWEEP_V = tuple(2.5 * (k + 1) for k in range(16))
 # Qwen3-0.6B at full width (configs/qwen3_0_6b.py), and its smoke config
 QWEN_N = 596_049_920
 K2_SIZES = (0, 1, 1029, 82304, QWEN_N, 2 ** 24 + 17)
@@ -944,6 +961,299 @@ def phase_churn(Scenario, counter):
               f"{ll} (loop)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The scan engine (engine="jax"): online's in-slot replay kernel, the
+# paper's trace-mode experiment at fleet scale, coverage and a batched sweep
+# ---------------------------------------------------------------------------
+def replay_inputs(B, n, H, seed):
+    """Online's replay operands on the card, (B, n) rows built as the
+    engine builds them (V P t_d - Q, V P t_d, idle gaps + eps, Eq. 4 gaps at
+    in_flight + 0..n) from Table II-like powers, with ties on purpose: a
+    third of the users have base == rhs and an idle gap equal to an entry
+    of gap_vec, so b + H g_j == r + H g_i where the walk reaches j = i, and
+    a tenth sit one ulp either side of rhs."""
+    rng = np.random.default_rng(seed)
+    waiting = rng.random((B, n)) < 0.7
+    powers = np.array([0.3, 0.55, 1.2, 2.4, 3.1])
+    V, Q = 4000.0, rng.integers(0, 50, (B, 1)).astype(float)
+    rhs = V * rng.choice(powers, (B, n)) * 1.0
+    base = V * rng.choice(powers, (B, n)) * 1.0 - Q
+    in_flight = rng.integers(0, 20, (B, 1))
+    lag = (in_flight + np.arange(n + 1)).astype(float)
+    vn = 1.0 / np.sqrt(1.0 + 0.05 * rng.integers(0, 500, (B, 1)))
+    gap_vec = 0.01 * (1.0 - np.power(0.9, lag)) / (1.0 - 0.9) * vn
+    gap_idle = rng.choice([0.05, 0.1, 0.15, 0.5], (B, n))
+    tie = rng.random((B, n)) < 1 / 3
+    base = np.where(tie, rhs, base)
+    k = rng.integers(0, n + 1, (B, n)) if n else np.zeros((B, 0), int)
+    gap_idle = np.where(tie, np.take_along_axis(gap_vec, k, 1), gap_idle)
+    ulp = rng.random((B, n)) < 0.1
+    base = np.where(ulp, np.nextafter(rhs, rng.choice([-np.inf, np.inf],
+                                                      (B, n))), base)
+    Hs = np.full(B, float(H))
+    cuda = lambda a, dt: torch.as_tensor(a).to("cuda", dt)
+    return (cuda(waiting, torch.bool), cuda(base, torch.float64),
+            cuda(rhs, torch.float64), cuda(gap_idle, torch.float64),
+            cuda(gap_vec, torch.float64), cuda(Hs, torch.float64))
+
+
+def phase_replay(online_replay, online_replay_cuda, dadd_chain_cuda):
+    """(a) online's replay kernel against its plain version on the same
+    CUDA tensors, bit for bit (start and gap_sum), at n in REPLAY_N, B in
+    (1, 16), H = 0 and H > 0; ms a launch by CUDA events; the plain
+    version's time; the bound: a chain of one dependent f64 add for each
+    waiting user of the row with the most of them (a user who is not
+    waiting adds nothing and leaves j as it is), at the latency of one
+    dependent f64 add on this card (``dadd_chain_cuda``: DADD_CHAIN adds
+    in one thread, timed by CUDA events, its cycles by clock64). Returns
+    (ms, plain ms, bound ms, checked cases, max |gap_sum - plain|) at the
+    main path's shape (B = 1, n = FLEET_N, H > 0)."""
+    cases, max_err = 0, 0.0
+    for n in REPLAY_N:
+        for B in (1, 16):
+            for H in (0.0, 37.5):
+                args = replay_inputs(B, n, H, seed=n + B)
+                ks, kg = online_replay(*args, kernel="cuda")
+                ps, pg = online_replay(*args, kernel="reference")
+                torch.cuda.synchronize()
+                max_err = max(max_err, float((kg - pg).abs().max()))
+                assert torch.equal(ks, ps), (n, B, H, "start")
+                assert torch.equal(kg.view(torch.int64),
+                                   pg.view(torch.int64)), (n, B, H, "sum")
+                cases += 1
+    print(f"replay: kernel equals its plain version bit for bit (start, "
+          f"gap_sum) in {cases} cases: n in {REPLAY_N}, B in (1, 16), H = 0 "
+          f"and 37.5, with ties", flush=True)
+    times = {}
+    for B in (1, 16):
+        args = replay_inputs(B, FLEET_N, 37.5, seed=7)
+        ms = time_ms(lambda: online_replay_cuda(*args), 20)
+        t0 = time.perf_counter()
+        online_replay(*args, kernel="reference")
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        steps = int(args[0].sum(-1).max())  # waiting users, fullest row
+        times[B] = (ms, plain, steps)
+    chain = dadd_chain_cuda(DADD_CHAIN)
+    torch.cuda.synchronize()
+    chain_ms = time_ms(lambda: dadd_chain_cuda(DADD_CHAIN), 5)
+    cycles = float(chain[1]) / DADD_CHAIN
+    step_ns = chain_ms * 1e6 / DADD_CHAIN
+    bounds = {}
+    for B, (ms, plain, steps) in times.items():
+        bounds[B] = steps * step_ns * 1e-6
+        print(f"replay at B={B}, n={FLEET_N}, H > 0: kernel {ms:.6f} ms a "
+              f"launch, plain {plain:.3f} ms, bound {bounds[B]:.6f} ms "
+              f"({bounds[B] / ms:.1%}): {steps} waiting users (the fullest "
+              f"row), one dependent f64 add each at {step_ns:.3f} ns "
+              f"({cycles:.2f} cycles), the latency of one dependent DADD "
+              f"measured over {DADD_CHAIN} ({chain_ms:.6f} ms)", flush=True)
+    return times[1][0], times[1][1], bounds[1], cases, max_err
+
+
+def check_scan(ref, res, label):
+    """The scan engine's run against the numpy engine's (the reference's
+    engine-parity contract, tests/test_engine_matrix.py): schedule digest
+    (t, user, lag, corun) equal, energy and mean_Q within rel 1e-9, mean_H
+    within rel 1e-6, gap and weight within rtol 1e-9 / atol 1e-15."""
+    assert res.updates == ref.updates, (label, res.updates, ref.updates)
+    assert schedule_digest(res.push_log) == schedule_digest(ref.push_log), \
+        label
+    assert res.drops == ref.drops, label
+    np.testing.assert_allclose(res.energy_j, ref.energy_j, rtol=1e-9,
+                               err_msg=label)
+    np.testing.assert_allclose(res.mean_Q, ref.mean_Q, rtol=1e-9, atol=1e-12,
+                               err_msg=label)
+    np.testing.assert_allclose(res.mean_H, ref.mean_H, rtol=1e-6, atol=1e-9,
+                               err_msg=label)
+    for col in ("gap", "weight"):
+        np.testing.assert_allclose(res.push_log.field(col),
+                                   ref.push_log.field(col), rtol=1e-9,
+                                   atol=1e-15, err_msg=f"{label}: {col}")
+
+
+def profile_kernels(build):
+    """The run of a sim that ``build()`` makes, once unprofiled, timed to
+    a synchronize (the wall: the profiler's own host cost would inflate
+    it), then, on a second build, under torch.profiler: (device kernel
+    launches, device busy s, unprofiled wall s, profiled wall s, the
+    replay kernel's device s). One stream, so busy time is the sum of
+    kernel self times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sim = build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sim = build()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) * 1e-6
+    replay = sum(e.self_device_time_total for e in rows
+                 if "online_replay" in e.key) * 1e-6
+    return sum(e.count for e in rows), busy, wall, prof_wall, replay
+
+
+def phase_fleet(Scenario, online_replay_cuda):
+    """(b) online at FLEET_N users for FLEET_HORIZON_S, push log on,
+    jax_chunk=0 (auto-tuned), once at the defaults and once at L_b = 2.0
+    (H > 0: the replay binds), each held to the numpy engine on the host
+    (``check_scan``). Prints simulated slots/s and user-slots/s, peak
+    memory, the tuned chunk, capacity and budget, overflow retries, and
+    kernels a slot (a profiled FLEET_PROFILE_S-slot run). Returns the
+    replay launches of the L_b = 2.0 run (one a slot)."""
+    launches = None
+    for over in ({}, {"L_b": 2.0}):
+        kw = dict(policy="online", n_users=FLEET_N,
+                  horizon_s=FLEET_HORIZON_S, seed=0, **over)
+        sim = Scenario(engine="jax", jax_chunk=0, **kw).build(device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        online_replay_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = online_replay_cuda.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        ref = Scenario(engine="vectorized", **kw).run()
+        ref_wall = time.perf_counter() - t0
+        label = f"online at {FLEET_N} users, {over or 'defaults'}"
+        check_scan(ref, res, label)
+        T = FLEET_HORIZON_S
+        info = sim.scan_info
+        assert launches == T, (launches, T)
+        if over:
+            assert res.mean_H > 0, "the L_b=2.0 run never had H > 0"
+        print(f"scan: {label}, {T} slots: wall {wall!r} s, "
+              f"{T / wall!r} slots/s, {FLEET_N * T / wall!r} user-slots/s, "
+              f"peak {peak!r} GiB; jax_chunk=0 tuned to {info.chunk} slots, "
+              f"push capacity {info.capacity} (tuned "
+              f"{info.tune.push_capacity}), budget {info.tune.device_budget} "
+              f"B, modeled {info.tune.est_bytes_per_device} B, "
+              f"{info.retries} overflow retries; {res.updates} updates, "
+              f"mean_H {res.mean_H!r}, energy {res.energy_j!r} J; replay "
+              f"launches {launches}; the numpy engine on the host took "
+              f"{ref_wall!r} s ({T / ref_wall!r} slots/s), same schedule "
+              f"{schedule_digest(res.push_log)[:16]}", flush=True)
+    prof = Scenario(policy="online", engine="jax", n_users=FLEET_N,
+                    horizon_s=FLEET_PROFILE_S, L_b=2.0, seed=0)
+    n_k, busy, wall, prof_wall, replay_s = profile_kernels(
+        lambda: prof.build(device="cuda"))
+    print(f"scan: profile of a {FLEET_PROFILE_S}-slot online run at "
+          f"{FLEET_N} users, L_b=2.0: {n_k} device kernels "
+          f"({n_k / FLEET_PROFILE_S!r} a slot), wall {wall!r} s "
+          f"(unprofiled; {prof_wall!r} s profiled), device busy {busy!r} s "
+          f"(idle share {1.0 - busy / wall!r} of the unprofiled wall), of "
+          f"which the replay {replay_s!r} s", flush=True)
+    return launches
+
+
+def phase_coverage(Scenario):
+    """(c) the six policies under replace, online and eps_greedy under the
+    other three rules, and Markov churn under both dropout rules, at
+    tests/test_engine_matrix.py's setting (COVER), each on the card's scan
+    engine against the numpy engine (``check_scan``)."""
+    from repro_torch.core import MarkovChurnDynamics
+    from repro_torch.core.policies import registered_policies
+    runs = [(p, "replace", "none") for p in registered_policies()]
+    runs += [(p, r, "none") for p in ("online", "eps_greedy")
+             for r in ("fedasync_poly", "gap_aware", "hetero_aware")]
+    runs += [("online", "replace", d) for d in ("lose", "resume")]
+    t0 = time.perf_counter()
+    for policy, rule, dropout in runs:
+        kw = dict(COVER, policy=policy, aggregation=rule)
+        if dropout != "none":
+            kw["dynamics"] = MarkovChurnDynamics(dropout=dropout, **CHURN)
+        res = Scenario(engine="jax", **kw).run(device="cuda")
+        ref = Scenario(engine="vectorized", **kw).run()
+        check_scan(ref, res, f"{policy}/{rule}/{dropout}")
+        if dropout != "none":
+            assert res.drops > 0
+    print(f"scan: {len(runs)} runs (6 policies x replace, online and "
+          f"eps_greedy x 3 rules, churn lose/resume) at {COVER} equal the "
+          f"numpy engine; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_sweep(Scenario, run_sweep):
+    """(d) a 16-point V sweep of online as one batch on the card, each row
+    against its own per-point scan run (digest equal, energies rel 1e-9),
+    the batch's wall against the 16 per-point walls; then a sweep with
+    push_log_capacity=1, which must overflow and re-run, losslessly."""
+    base = Scenario(policy="online", n_users=25, horizon_s=600, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = base.sweep(V=SWEEP_V, device="cuda")
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    walls = []
+    for sc, r in zip(base.grid(V=SWEEP_V), rows):
+        t0 = time.perf_counter()
+        pp = Scenario(config=dataclasses.replace(sc.config, engine="jax")
+                      ).run(device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        assert schedule_digest(r.push_log) == schedule_digest(pp.push_log)
+        assert r.updates == pp.updates
+        np.testing.assert_allclose(r.energy_j, pp.energy_j, rtol=1e-9)
+        np.testing.assert_allclose(r.trace_energy, pp.trace_energy,
+                                   rtol=1e-9)
+    print(f"sweep: {len(SWEEP_V)} V points as one batch on the card "
+          f"{batch_wall!r} s, the same points one by one {sum(walls)!r} s "
+          f"(each {min(walls)!r}-{max(walls)!r} s); every row equals its "
+          f"per-point run; updates {[r.updates for r in rows]}", flush=True)
+    grid = Scenario(policy="immediate", n_users=25, horizon_s=600, seed=1,
+                    push_log_capacity=1).grid(seed=[1, 2, 3, 4])
+    sims = [sc.build(device="cuda") for sc in grid]
+    from repro_torch.core import run_jax_sweep
+    res = run_jax_sweep(sims)
+    for sc, sim, r in zip(grid, sims, res):
+        ref = Scenario(config=dataclasses.replace(
+            sc.config, engine="vectorized")).run()
+        check_scan(ref, r, f"overflow sweep seed {sc.config.seed}")
+    retries = sims[0].scan_info.retries
+    assert retries > 0, "push_log_capacity=1 never overflowed"
+    print(f"sweep with push_log_capacity=1: {retries} overflow retries, "
+          f"capacity grew to {sims[0].scan_info.capacity}, pushes "
+          f"{[len(r.push_log) for r in res]} equal the numpy engine's",
+          flush=True)
+
+
+def phase_scan(Scenario, run_sweep, replay):
+    """The scan-engine phase: (a) the replay kernel, (b) fleet scale,
+    (c) coverage, (d) a batched sweep. Returns the replay's kernel-record
+    numbers."""
+    t = time.perf_counter()
+    ms, plain_ms, bound, cases, max_err = phase_replay(
+        replay.online_replay, replay.online_replay_cuda,
+        replay.dadd_chain_cuda)
+    print(f"scan phase (a) replay: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    launches = phase_fleet(Scenario, replay.online_replay_cuda)
+    print(f"scan phase (b) fleet: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    phase_coverage(Scenario)
+    print(f"scan phase (c) coverage: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    phase_sweep(Scenario, run_sweep)
+    print(f"scan phase (d) sweep: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                cases=cases, max_abs_err=max_err)
+
+
 def profile_main(Scenario, horizon_s):
     """torch.profiler over a shortened online run on the card: device busy
     time (the sum of kernel self times; one stream, so no overlap) against
@@ -1459,10 +1769,11 @@ def randn(shape, gen, dtype=torch.float32, scale=1.0):
         dtype)
 
 
-def phase_build(cuda_build):
-    """Build the CUDA C++ kernels (one nvcc per source, started together)
-    and print what ptxas said about registers, shared memory and spills."""
-    built = cuda_build.build_all()
+def phase_build(cuda_build, names=None):
+    """Build the CUDA C++ kernels (one nvcc per source, started together;
+    ``names`` a subset of ``SOURCES``) and print what ptxas said about
+    registers, shared memory and spills."""
+    built = cuda_build.build_all(names or cuda_build.SOURCES)
     for name, (path, secs) in built.items():
         print(f"build {name}: {path.name} ready after {secs:.1f} s",
               flush=True)
@@ -1867,7 +2178,8 @@ def main() -> int:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, ".kernel_build", "triton"))
     from repro_torch.core import (AsyncParameterServer, Scenario,
-                                  make_ml_hooks)
+                                  make_ml_hooks, run_sweep)
+    from repro_torch.kernels import online_replay
     from repro_torch.kernels import fused_update
     from repro_torch.kernels.fused_update import (fused_apply_triton,
                                                   fused_update_flat,
@@ -1968,6 +2280,11 @@ def main() -> int:
     t = time.perf_counter()
     phase_churn(Scenario, fused_apply_triton)
     print(f"churn phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- 5e. the scan engine: the replay kernel, fleet scale, a sweep ----
+    t = time.perf_counter()
+    replay = phase_scan(Scenario, run_sweep, online_replay)
+    print(f"scan engine phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 6. K2 against its plain version ---------------------------------
     t = time.perf_counter()
@@ -2081,6 +2398,19 @@ def main() -> int:
         "bound_by": k3_times[3],
         "library_ms": k3_times[4],
     }, {
+        "name": "online_replay (online's in-slot replay: Alg. 2's "
+                "sequential lag coupling, one launch a slot)",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/online_replay.cu",
+        "replaces": "src/repro/core/policies.py:504",
+        "launches": replay["launches"],
+        "max_abs_err": replay["max_abs_err"],
+        "ms": replay["ms"],
+        "plain_ms": replay["plain_ms"],
+        "bound_ms": replay["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+    }, {
         "name": "K4 flash_attention (causal GQA online-softmax attention)",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2099,5 +2429,25 @@ def main() -> int:
     return 0
 
 
+def main_scan() -> int:
+    """``python3 chip_smoke.py scan``: the scan-engine phase alone (the
+    replay kernel's build, then (a)-(d)), a few minutes on the card against
+    the whole script's ~12, for work on the engine; prints no ``ok`` line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    from repro_torch.core import Scenario, run_sweep
+    from repro_torch.kernels import _cuda_build, online_replay
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    phase_build(_cuda_build, ("online_replay",))
+    t = time.perf_counter()
+    print(json.dumps(phase_scan(Scenario, run_sweep, online_replay)),
+          flush=True)
+    print(f"scan engine phase: {time.perf_counter() - t:.1f} s", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_scan() if sys.argv[1:] == ["scan"] else main())

@@ -4,12 +4,14 @@ paper's four schedulers — online Lyapunov, immediate, offline knapsack,
 FedAvg sync — the greedy and eps_greedy extras, the aggregation rules,
 Markov device churn, the async parameter server with the K1 push-apply
 kernel and the FedAvg server, the slotted-time simulator on the loop
-oracle and the numpy engine, real LeNet-5 and MLP training) behind the
-``Scenario`` entry point."""
+oracle, the numpy engine and the device scan engine (batched sweeps,
+auto-tuned chunks, online's in-slot replay as a CUDA C++ kernel), real
+LeNet-5 and MLP training) behind the ``Scenario`` entry point."""
 from .aggregation import (AggregationRule, FedAsyncPolyRule, GapAwareRule,
-                          HeteroAwareRule, ReplaceRule, configure_aggregation,
-                          hetero_scales, register_aggregation,
-                          registered_aggregations, resolve_aggregation)
+                          HeteroAwareRule, ReplaceRule, aggregation_support,
+                          configure_aggregation, hetero_scales,
+                          register_aggregation, registered_aggregations,
+                          resolve_aggregation)
 from .arrivals import (ArrivalProcess, BernoulliArrivals, DiurnalArrivals,
                        MarkovModulatedArrivals, TraceArrivals,
                        register_arrival, registered_arrivals,
@@ -24,7 +26,7 @@ from .energy import (APPS, DEVICE_NAMES, TESTBED, AppProfile, DeviceProfile,
                      table2_savings)
 from .engine_state import (EVENT_FIELDS, MODE_COOL, MODE_OFF, MODE_TRAIN,
                            MODE_WAIT, PLAN_CORUN, PLAN_HOLD, PLAN_SEP,
-                           EngineState, PushLog)
+                           EngineState, PushBuffer, PushLog)
 from .fleet import (CustomCatalogFleet, Fleet, FleetSpec, PaperFleet,
                     SyntheticFleet, register_fleet, registered_fleets,
                     resolve_fleet)
@@ -41,6 +43,10 @@ from .realml import (BatchedMLBackend, ImageClassifierBackend, LeNetBackend,
                      register_ml_backend, registered_ml_backends)
 from .scenario import Scenario, run_experiment, run_sweep
 from .server import AsyncParameterServer, PushResult, SyncServer
-from .simulator import (ENGINES, FederatedSim, SimConfig, SimResult,
-                        UserState)
-from .staleness import LagTracker, gradient_gap, momentum_scale, tree_l2_norm
+from .simulator import (ENGINES, POLICIES, FederatedSim, SimConfig,
+                        SimResult, UserState)
+from .staleness import (LagTracker, gradient_gap, momentum_scale,
+                        predict_weights, tree_l2_norm, true_gap)
+from .autotune import (autotune_scan_params, device_memory_budget,
+                       estimate_device_bytes)
+from .vector_engine import run_jax_sweep, sweep_bucket_key

@@ -20,8 +20,10 @@ An ``AggregationRule`` exposes two paths:
     ``scan_operands``, ``float_dtype``). Returns ``(carry, weight)``
     with the carry unchanged. The LeNet finish computes ``gap_aware``'s
     weights with it on the device, push by push (core/realml.py); the
-    port's scan engine (ROADMAP Queue 1 item 6) will call it for every
-    rule.
+    device scan engine (core/vector_engine.py) fills its push log's
+    weight column with it every slot, on ``(B, n)`` tensors with a
+    leading config axis (each knob of ``consts`` a ``(B, 1)`` tensor,
+    ``users`` the ``(n,)`` user ids, carry leaves ``(B, n)``).
 
 and ``init_carry(n, cfg, fleet=None)``, the per-run rule state
 (``EngineState.agg_carry``; run-constant lookup state such as
@@ -44,15 +46,25 @@ import torch
 __all__ = ["AggregationRule", "ReplaceRule", "FedAsyncPolyRule",
            "GapAwareRule", "HeteroAwareRule", "register_aggregation",
            "registered_aggregations", "resolve_aggregation",
-           "configure_aggregation", "hetero_scales"]
+           "configure_aggregation", "aggregation_support", "hetero_scales"]
 
 
 class AggregationRule:
     """Base aggregation rule. Subclass, set ``name``, implement
-    ``weight``, and decorate with ``@register_aggregation``."""
+    ``weight``, and decorate with ``@register_aggregation``.
+
+    - ``supports_jax``: ``scan_weight`` exists, so a push log can be
+      collected inside the device scan engine (``engine="jax"``);
+      ``SimConfig`` checks the flag against the hook at construction,
+      and a rule without it degrades that engine to the numpy engine.
+    - ``supports_vmap``: ``scan_weight`` may run on a batched sweep's
+      ``(B, n)`` tensors (``run_sweep``).
+    """
 
     name: str = ""
     needs_gap: bool = False
+    supports_jax: bool = True
+    supports_vmap: bool = True
 
     def weight(self, lag, gap, v_norm, fleet=None, users=None):
         """Applied mixing weight(s) in ``[0, 1]``; ``lag``/``gap``
@@ -70,11 +82,24 @@ class AggregationRule:
         (``pv.consts``)."""
         return ()
 
+    def jax_cache_key(self):
+        """Hashable token of this rule's ``scan_weight`` behaviour (the
+        JAX package's executable-cache key; here it joins the sweep
+        bucket key): the class when the instance has no attributes or
+        routes its knobs through ``scan_operands``, else the instance."""
+        if not vars(self) or \
+                type(self).scan_operands is not AggregationRule.scan_operands:
+            return type(self)
+        return self
+
     def scan_weight(self, carry, pv):
         """Tensor twin of ``weight``: ``(carry, weight)``, ``weight``
-        broadcastable against ``pv.lag``, the carry unchanged."""
-        raise NotImplementedError(
-            f"aggregation rule {self.name!r} implements no scan_weight()")
+        broadcastable against ``pv.lag``, the carry unchanged. Only
+        called when ``supports_jax``."""
+        raise TypeError(
+            f"aggregation rule {self.name!r} sets supports_jax but "
+            "inherits the base scan_weight; implement the hook or clear "
+            "the flag to degrade to the numpy engine")
 
 
 _REGISTRY: Dict[str, Type[AggregationRule]] = {}
@@ -124,6 +149,18 @@ def configure_aggregation(rule, *, fedasync_alpha: float = 0.6,
     if isinstance(rule, str) and rule == "gap_aware" and gap_ref != 1.0:
         return GapAwareRule(gap_ref)
     return resolve_aggregation(rule)
+
+
+def aggregation_support(rule: AggregationRule) -> Dict[str, bool]:
+    """Which paths ``rule`` genuinely implements (the flag set AND the
+    base stub overridden): ``host`` (``weight``) and ``jax`` (the scan
+    engine's ``scan_weight``)."""
+    cls = type(rule)
+    return {
+        "host": cls.weight is not AggregationRule.weight,
+        "jax": (rule.supports_jax and
+                cls.scan_weight is not AggregationRule.scan_weight),
+    }
 
 
 @register_aggregation
@@ -265,5 +302,5 @@ class HeteroAwareRule(AggregationRule):
     def scan_weight(self, carry, pv):
         (a,) = pv.consts
         scale = torch.as_tensor(carry["scale"], device=pv.lag.device)
-        scale = scale[pv.users].to(pv.float_dtype)
+        scale = scale[..., pv.users].to(pv.float_dtype)
         return carry, scale * (1.0 + pv.lag.to(pv.float_dtype)) ** (-a)

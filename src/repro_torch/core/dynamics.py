@@ -24,9 +24,17 @@ departure in Eq. 15); a TRAINING user follows the ``dropout`` rule —
 comes back up re-enters through cooldown with ``ready_delay + net_extra``
 slots. Down users draw no power and a paused trainer makes no progress.
 
+``scan_step(dyn, dv)``
+    The same transition on tensors, for the device scan engine
+    (core/vector_engine.py): ``dyn`` holds ``(B, n)`` tensors with a
+    leading config axis, ``dv`` is the slot view (``rng_key`` (B, 2),
+    ``mode``, ``corun``, ``t_d``, ``consts`` from ``scan_operands`` as
+    ``(B, 1)`` tensors, the live ``n``). It draws the same bits on the
+    device (``prng.split_t``/``uniform_t``), writes the split key back to
+    ``dv.rng_key`` and returns ``(new_dyn, DynEffects)``.
+
 ``none`` (the default, the paper's always-on fleet) is INACTIVE: no
-state, no draws, no effect. The JAX package's traced ``scan_step`` belongs
-to its scan engine, whose port is ROADMAP Queue 1 item 6.
+state, no draws, no effect.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import dataclasses
 from typing import Any, Dict, Tuple, Type
 
 import numpy as np
+import torch
 
 from . import prng
 from .engine_state import MODE_TRAIN
@@ -64,16 +73,44 @@ class DynEffects:
 class DeviceDynamics:
     """Base device-dynamics model. ``active`` False means the engines skip
     the dynamics phase (no state, no draws); only ``NoDynamics`` clears
-    it. ``dropout`` is the mid-training rule, one of ``DROPOUT_RULES``."""
+    it. ``dropout`` is the mid-training rule, one of ``DROPOUT_RULES``,
+    applied by the engines and so part of ``jax_cache_key``.
+    ``supports_jax``: ``scan_step`` exists (``SimConfig`` checks the flag
+    against the hook; active dynamics without it degrade the scan engine
+    to the numpy engine). ``supports_vmap``: ``scan_step`` may run on a
+    batched sweep's ``(B, n)`` tensors."""
 
     name: str = ""
     active: bool = True
+    supports_jax: bool = True
+    supports_vmap: bool = True
     dropout: str = "lose"
 
     def init_state(self, n: int, cfg=None, fleet=None):
         """Per-run per-user state (``EngineState.dyn``); ``None`` for
         inactive dynamics."""
         return None
+
+    def scan_operands(self, cfg) -> tuple:
+        """Scalar knobs ``scan_step`` reads (``dv.consts``)."""
+        return ()
+
+    def pad_state(self, k: int):
+        """``(k,)``-leading inert rows matching ``init_state``'s dict,
+        for a user axis padded past the live ``n``; ``None``: no recipe.
+        The port's one-card scan never pads; the recipe is kept with the
+        reference's for the sharded scan (ROADMAP Queue 1 item 9)."""
+        return None
+
+    def jax_cache_key(self):
+        """Hashable token of ``scan_step`` and the effect semantics (the
+        dropout rule is always in it): ``(class, dropout)`` when the
+        instance routes its knobs through ``scan_operands`` or has none,
+        else the instance."""
+        if not vars(self) or \
+                type(self).scan_operands is not DeviceDynamics.scan_operands:
+            return (type(self), self.dropout)
+        return self
 
     def host_step(self, dyn, rng_key, mode, corun, t_d
                   ) -> Tuple[Any, Any, DynEffects]:
@@ -82,6 +119,15 @@ class DeviceDynamics:
         every engine."""
         raise NotImplementedError(
             f"dynamics {self.name!r} implements no host_step()")
+
+    def scan_step(self, dyn, dv):
+        """The transition on the scan engine's tensors; reads and writes
+        ``dv.rng_key``, returns ``(dyn, DynEffects)``. Only called when
+        ``supports_jax``."""
+        raise TypeError(
+            f"dynamics {self.name!r} sets supports_jax but inherits the "
+            "base scan_step; implement the hook or clear the flag to "
+            "degrade to the numpy engine")
 
     def total_drops(self, dyn) -> int:
         """Mid-training drops recorded in ``dyn`` (0 when untracked)."""
@@ -122,11 +168,17 @@ def resolve_dynamics(dyn) -> DeviceDynamics:
 
 
 def dynamics_support(dyn: DeviceDynamics) -> Dict[str, bool]:
-    """Whether ``dyn`` genuinely implements the host path (the base stub
-    overridden); inactive dynamics need none."""
+    """Which paths ``dyn`` genuinely implements (the flag set AND the
+    base stub overridden): ``host`` and the scan engine's ``jax``.
+    Inactive dynamics support both (there is nothing to run)."""
+    cls = type(dyn)
     if not dyn.active:
-        return {"host": True}
-    return {"host": type(dyn).host_step is not DeviceDynamics.host_step}
+        return {"host": True, "jax": True}
+    return {
+        "host": cls.host_step is not DeviceDynamics.host_step,
+        "jax": (dyn.supports_jax and
+                cls.scan_step is not DeviceDynamics.scan_step),
+    }
 
 
 @register_dynamics
@@ -248,8 +300,29 @@ class MarkovChurnDynamics(DeviceDynamics):
             "p_on": _per_user(self.p_on, n, fleet, "p_on"),
         }
 
+    def scan_operands(self, cfg):
+        return (self.capacity, self.drain_train, self.drain_corun,
+                self.charge_rate, self.battery_min, self.p_net_bad,
+                self.p_net_recover, self.net_delay_slots,
+                self.resume_penalty_s)
+
+    def pad_state(self, k):
+        # always-up rows: full battery, p_off = 0 (a fill-1.0 draw keeps
+        # the chain on), a network that never turns bad
+        return {
+            "on": np.ones(k, dtype=bool),
+            "up": np.ones(k, dtype=bool),
+            "battery": np.full(k, self.capacity),
+            "net_bad": np.zeros(k, dtype=bool),
+            "drops": np.zeros(k, dtype=np.int64),
+            "p_off": np.zeros(k),
+            "p_on": np.zeros(k),
+        }
+
     def total_drops(self, dyn) -> int:
-        return 0 if dyn is None else int(np.asarray(dyn["drops"]).sum())
+        return 0 if dyn is None else int(np.asarray(
+            dyn["drops"].cpu() if torch.is_tensor(dyn["drops"])
+            else dyn["drops"]).sum())
 
     def host_step(self, dyn, rng_key, mode, corun, t_d):
         rng_key, u = _dyn_draw(rng_key, len(dyn["battery"]))
@@ -261,25 +334,44 @@ class MarkovChurnDynamics(DeviceDynamics):
             self.resume_penalty_s)
         return dyn, rng_key, eff
 
+    def scan_step(self, dyn, dv):
+        # one split and a (2, n) draw a slot, unconditionally, at the live
+        # n: the host engines' key chain and bits (core/prng.py)
+        keys = prng.split_t(dv.rng_key)
+        dv.rng_key = keys[..., 0, :]
+        u = prng.uniform_t(keys[..., 1, :], 2 * dv.n)
+        (capacity, drain_train, drain_corun, charge_rate, battery_min,
+         p_net_bad, p_net_recover, net_delay_slots,
+         resume_penalty_s) = dv.consts
+        return self._transition(
+            torch, dyn, u[..., :dv.n], u[..., dv.n:], dv.mode, dv.corun,
+            dv.t_d, capacity, drain_train, drain_corun, charge_rate,
+            battery_min, p_net_bad, p_net_recover, net_delay_slots,
+            resume_penalty_s, zero=dv.fp_zero)
+
     @staticmethod
     def _transition(xp, dyn, u_avail, u_net, mode, corun, t_d,
                     capacity, drain_train, drain_corun, charge_rate,
                     battery_min, p_net_bad, p_net_recover,
                     net_delay_slots, resume_penalty_s, zero=0.0):
-        """One slot, elementwise, in the JAX package's operation order
-        (bitwise parity in f64). ``zero`` is the reference's traced-zero
-        slot (``+ zero`` after the ``delta * t_d`` product); on the host
-        it adds 0.0."""
+        """One slot, elementwise, numpy or torch (``xp``), in the JAX
+        package's operation order (bitwise parity in f64). ``zero`` is
+        the reference's traced-zero slot (``+ zero`` after the
+        ``delta * t_d`` product, which an fma would otherwise leave
+        unrounded); it adds 0.0 on both of the port's paths, as eager
+        torch contracts nothing."""
         up_prev = dyn["up"]
         training = mode == MODE_TRAIN
         # drain while ACTUALLY training (a paused trainer is off), charge
         # otherwise
         active_train = training & up_prev
         drain = xp.where(corun & active_train, drain_corun, drain_train)
+        # the lower bound 0.0 in capacity's type: torch's clip takes two
+        # numbers or two tensors (the scan's knobs are (B, 1) tensors)
         battery = xp.clip(
             dyn["battery"]
             + (xp.where(active_train, -drain, charge_rate) * t_d + zero),
-            0.0, capacity)
+            0.0 * capacity, capacity)
         on = xp.where(dyn["on"], u_avail >= dyn["p_off"],
                       u_avail < dyn["p_on"])
         net_bad = xp.where(dyn["net_bad"], u_net >= p_net_recover,

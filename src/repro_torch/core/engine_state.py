@@ -9,12 +9,16 @@ mutates it in place.
 
 The push log is a ``PushLog`` of fixed-width blocks (six columns — slot,
 user, lag, gap, corun, applied aggregation weight); the
-``SimResult.push_log`` dict schema is decoded lazily on access.
+``SimResult.push_log`` dict schema is decoded lazily on access. The device
+scan engine (core/vector_engine.py) keeps the same state as tensors with
+a leading config axis and streams its pushes through a ``PushBuffer``, a
+preallocated ``(B, capacity, 6)`` tensor filled by scatter and drained
+into the ``PushLog`` once a chunk (``PushLog.extend_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -31,6 +35,18 @@ PLAN_HOLD, PLAN_CORUN, PLAN_SEP = 0, 1, 2
 # rule's applied mixing weight (core/aggregation.py) — 1.0 under the
 # paper's replace rule.
 EVENT_FIELDS = ("t", "user", "lag", "gap", "corun", "weight")
+
+
+class PushBuffer(NamedTuple):
+    """The scan engine's event buffer: ``rows`` is ``(B, capacity + 1,
+    6)`` in ``EVENT_FIELDS`` order, one row a config; ``count`` ``(B, 1)``
+    the pushes recorded since the last drain. Rows past the capacity land
+    in the spare last row and are lost while ``count`` stays exact, so the
+    engine sees an overflow as ``count > capacity`` and re-runs the chunk
+    with a larger buffer."""
+
+    rows: Any
+    count: Any
 
 
 @dataclasses.dataclass
@@ -82,6 +98,8 @@ class EngineState:
     carry: Any = None
     agg_carry: Any = None
     dyn: Any = None
+    # ---- the scan engine's push buffer (None elsewhere) ----------------
+    events: Any = None
 
     @classmethod
     def init(cls, n: int, cfg, policy, agg=None, fleet=None,
@@ -115,7 +133,8 @@ class PushLog:
     """Fixed-width push-log accumulator with the historical dict schema.
 
     The numpy engine appends one columnar block per slot (``extend``),
-    the loop oracle one event per push (``append``). The
+    the loop oracle one event per push (``append``), the scan engine
+    one drained buffer slice per chunk (``extend_rows``). The
     sequence interface decodes per-event dicts
     ``{"t", "user", "lag", "gap", "corun", "weight"}`` lazily, so holding
     a fleet-scale log costs six flat arrays, not O(pushes) dicts;
@@ -157,6 +176,21 @@ class PushLog:
                             np.ones(k, np.float64) if weights is None
                             else np.asarray(weights, np.float64)))
         self._n += k
+        self._cache = None
+
+    def extend_rows(self, rows) -> None:
+        """A drained ``PushBuffer`` slice: ``rows`` is ``(k, 6)`` float
+        in ``EVENT_FIELDS`` order (the scan engine's path)."""
+        rows = np.asarray(rows)
+        if not len(rows):
+            return
+        self._parts.append((rows[:, 0].astype(np.int64),
+                            rows[:, 1].astype(np.int64),
+                            rows[:, 2].astype(np.int64),
+                            rows[:, 3].astype(np.float64),
+                            rows[:, 4] != 0,
+                            rows[:, 5].astype(np.float64)))
+        self._n += len(rows)
         self._cache = None
 
     # ------------------------------------------------------------- readers

@@ -3,7 +3,7 @@ hook per engine.
 
 The counterpart of ``repro/core/policies.py``. A ``Policy`` is a
 registered object; ``init_carry(n, cfg)`` returns its per-run state (which
-the engines thread as ``EngineState.carry``), and two hooks make one
+the engines thread as ``EngineState.carry``), and three hooks make one
 slot's decisions:
 
 ``decide_loop(sim, t, waiting, carry)``
@@ -12,6 +12,18 @@ slot's decisions:
 ``decide_vectorized(eng, t, carry)``
     The same decisions on the struct-of-arrays numpy engine
     (``core/vector_engine.py``); set ``supports_vectorized``.
+``scan_step(carry, sv) -> (carry, (start, gap_sum))``
+    The same decisions on the device scan engine (``engine="jax"``,
+    core/vector_engine.py); set ``supports_jax``. ``sv`` is the slot
+    view: per-user ``(B, n)`` tensors with a leading config axis (masks,
+    catalog gathers, ``idle_gap``, ``plan``), ``(B, 1)`` scheduler
+    scalars and knobs (``Q``, ``H``, ``version``, ``V``, ...; the
+    policy's ``scan_operands`` as ``sv.consts``), the ``(B, 2)`` run key
+    and the slot ``t`` as a Python int. The hook writes ``sv.idle_gap``,
+    ``sv.plan``, ``sv.round_open`` or ``sv.rng_key`` where it owns them,
+    and returns the ``(B, n)`` start mask and the ``(B, 1)`` Eq. (16) gap
+    sum. It reads nothing back to the host, except where its decision
+    logic is host code (offline's knapsack, at plan slots only).
 
 Ships the paper's four schedulers (Sec. VII.B) — the online Lyapunov
 controller (Alg. 2, the paper's contribution), the immediate baseline the
@@ -19,9 +31,10 @@ energy saving is measured against, the offline knapsack oracle (Alg. 1)
 and FedAvg's lock-step rounds (sync) — and the JAX package's two extras:
 the ``greedy`` energy-threshold baseline and ``eps_greedy``, whose draws
 come from ``EngineState.rng_key`` through the threefry twin
-(``core/prng.py``). For a given seed both hooks take the JAX package's
-loop and numpy engines' decisions bit for bit. The JAX package's third
-hook, ``scan_step``, belongs to its scan engine (ROADMAP Queue 1 item 6).
+(``core/prng.py``). For a given seed the hooks take the JAX package's
+loop and numpy engines' decisions bit for bit, and ``scan_step`` its jax
+engine's under x64. Online's ``scan_step`` walks the users of a slot in
+the CUDA C++ replay kernel (``kernels/online_replay``).
 """
 from __future__ import annotations
 
@@ -29,6 +42,9 @@ from typing import Dict, List, Tuple, Type
 
 import numpy as np
 
+import torch
+
+from ..kernels.online_replay import online_replay
 from . import prng
 from .energy import APPS
 from .engine_state import PLAN_CORUN, PLAN_HOLD, PLAN_SEP
@@ -53,20 +69,50 @@ class Policy:
     - ``uses_online_queue``: the per-slot Lyapunov decision runs on-device,
       so ``include_scheduler_overhead`` adds Table III's scheduler power
       while waiting.
-    - ``supports_vectorized``: ``decide_vectorized`` exists, so
-      ``engine="auto"`` may pick the numpy engine. ``SimConfig`` checks
-      the flag against the hook at construction.
+    - ``supports_vectorized`` / ``supports_jax``: ``decide_vectorized``
+      / ``scan_step`` exists. ``SimConfig`` checks each flag against its
+      hook at construction.
+    - ``supports_vmap``: ``scan_step`` may run on a batched sweep's
+      ``(B, n)`` tensors (``run_sweep``). Offline clears it: its host
+      knapsack plans one config at a time.
     """
 
     name: str = ""
     sync_rounds: bool = False
     uses_online_queue: bool = False
     supports_vectorized: bool = False
+    supports_jax: bool = False
+    supports_vmap: bool = True
 
     def init_carry(self, n: int, cfg):
-        """Per-run policy state (``EngineState.carry``) that both engines
-        mutate in place; ``None`` for stateless policies."""
+        """Per-run policy state (``EngineState.carry``): a dict that the
+        host engines mutate in place. On the scan engine its numpy arrays
+        ride as device tensors with a leading config axis; its Python
+        numbers stay on the host (a hook may branch on them without a
+        device read) and must be equal across a sweep's configs. ``None``
+        for stateless policies."""
         return None
+
+    def scan_operands(self, cfg) -> tuple:
+        """Instance knobs ``scan_step`` reads, as a flat tuple of numbers
+        (``sv.consts``: (B, 1) tensors, so a sweep over them is one
+        batch)."""
+        return ()
+
+    def scan_statics(self, cfg) -> tuple:
+        """Shape-like knobs ``scan_step`` reads as Python values
+        (``sv.statics``); they join the sweep bucket key."""
+        return ()
+
+    def jax_cache_key(self):
+        """Hashable token of this policy's ``scan_step`` behaviour (the
+        JAX package's executable-cache key; here it joins the sweep bucket
+        key): the class when the instance has no attributes or routes its
+        knobs through ``scan_operands``, else the instance."""
+        if not vars(self) or \
+                type(self).scan_operands is not Policy.scan_operands:
+            return type(self)
+        return self
 
     def decide_loop(self, sim, t: int, waiting: list, carry
                     ) -> Tuple[int, float]:
@@ -85,6 +131,14 @@ class Policy:
             f"policy {self.name!r} sets supports_vectorized but inherits "
             "the base decide_vectorized; implement the hook or clear the "
             "flag")
+
+    def scan_step(self, carry, sv):
+        """Decisions for slot ``sv.t`` on the scan engine's tensors.
+        Returns ``(carry, (start (B, n) bool, gap_sum (B, 1) f64))``. Only
+        called when ``supports_jax``."""
+        raise TypeError(
+            f"policy {self.name!r} sets supports_jax but inherits the base "
+            "scan_step; implement the hook or clear the flag")
 
 
 _REGISTRY: Dict[str, Type[Policy]] = {}
@@ -121,13 +175,36 @@ def resolve_policy(policy) -> Policy:
 
 
 def engine_support(policy: Policy) -> Dict[str, bool]:
-    """Which engine hooks ``policy`` genuinely implements: ``vectorized``
-    is the flag set AND the base stub overridden."""
+    """Which engine hooks ``policy`` genuinely implements: for
+    ``vectorized`` and ``jax``, the flag set AND the base stub overridden
+    (every policy has the loop hook)."""
     cls = type(policy)
     return {
         "vectorized": (policy.supports_vectorized and
                        cls.decide_vectorized is not Policy.decide_vectorized),
+        "jax": (policy.supports_jax and
+                cls.scan_step is not Policy.scan_step),
     }
+
+
+# ---------------------------------------------------------------------------
+# Tensor twins of the shared numpy formulas, for scan_step. Eager torch
+# rounds every operation, as numpy does: no traced zero is needed.
+# ---------------------------------------------------------------------------
+def _trace_v_norm_t(v_norm0, version):
+    """``simulator.trace_v_norm`` on (B, 1) tensors."""
+    return v_norm0 / torch.sqrt(1.0 + 0.05 * version.to(v_norm0.dtype))
+
+
+def _gradient_gap_t(v_norm, lag, eta, beta):
+    """``staleness.gradient_gap`` (Eq. 4) on tensors, with no beta == 0
+    branch: 0 ** 0 == 1 gives the same value at lag 0."""
+    lag = lag.to(beta.dtype)
+    return eta * (1.0 - beta ** lag) / (1.0 - beta) * v_norm
+
+
+def _no_gap(sv):
+    return torch.zeros_like(sv.Q)
 
 
 # ---------------------------------------------------------------------------
@@ -186,12 +263,12 @@ def plan_window(plan, t, widx, app, app_sched, app_choice, T_COR, SRATE,
 def _offline_plan_host(t, waiting, plan, app, version, sched_w, choice_w,
                        row0, T_COR, SRATE, window, L_b, resolution, eta,
                        beta, v_norm0):
-    """The JAX scan engine's host callback for the offline plan: the same
-    ``plan_window`` the numpy engine runs, fed only the look-ahead rows
+    """The scan engine's host plan for offline: the same ``plan_window``
+    the numpy engine runs, fed only the look-ahead rows
     (``sched_w``/``choice_w``, row i = absolute slot ``row0 + i``) and the
     trace-mode norm model. Returns a new plan array (the input is not
-    mutated). The port's scan engine (ROADMAP Queue 1 item 6) will call
-    it; the numpy engine calls ``plan_window`` directly."""
+    mutated). ``OfflinePolicy.scan_step`` calls it at plan slots; the
+    numpy engine calls ``plan_window`` directly."""
     from .simulator import trace_v_norm
 
     t = int(t)
@@ -218,6 +295,7 @@ class SyncPolicy(Policy):
     name = "sync"
     sync_rounds = True
     supports_vectorized = True
+    supports_jax = True
 
     def decide_loop(self, sim, t, waiting, carry):
         served = 0
@@ -237,6 +315,13 @@ class SyncPolicy(Policy):
             return eng.n, 0.0
         return 0, 0.0
 
+    def scan_step(self, carry, sv):
+        open_now = ~sv.round_open & \
+            (sv.waiting.sum(-1, keepdim=True) == sv.n)
+        start = sv.waiting & open_now
+        sv.round_open = sv.round_open | open_now
+        return carry, (start, _no_gap(sv))
+
 
 @register_policy
 class ImmediatePolicy(Policy):
@@ -244,6 +329,7 @@ class ImmediatePolicy(Policy):
 
     name = "immediate"
     supports_vectorized = True
+    supports_jax = True
 
     def decide_loop(self, sim, t, waiting, carry):
         for u in waiting:
@@ -257,6 +343,9 @@ class ImmediatePolicy(Policy):
             return len(widx), 0.0
         return 0, 0.0
 
+    def scan_step(self, carry, sv):
+        return carry, (sv.waiting, _no_gap(sv))
+
 
 @register_policy
 class OnlinePolicy(Policy):
@@ -265,6 +354,7 @@ class OnlinePolicy(Policy):
     name = "online"
     uses_online_queue = True
     supports_vectorized = True
+    supports_jax = True
 
     def decide_loop(self, sim, t, waiting, carry):
         cfg = sim.cfg
@@ -308,6 +398,26 @@ class OnlinePolicy(Policy):
             s.idle_gap[widx[~d.schedule]] += eng.cfg.epsilon
         return d.n_served, d.gap_sum
 
+    def scan_step(self, carry, sv):
+        # Alg. 2 line 6 for every waiting user, in the host engines'
+        # operation order: V * P * t_d - Q + H * g against V * P * t_d +
+        # H * (idle_gap + eps); gap_vec[j] is the gap at lag in_flight + j
+        vn = _trace_v_norm_t(sv.v_norm0, sv.version)
+        p_s = torch.where(sv.has_app, sv.pcor_g, sv.PT)
+        p_i = torch.where(sv.has_app, sv.papp_g, sv.PI)
+        base = sv.V * p_s * sv.t_d - sv.Q
+        rhs = sv.V * p_i * sv.t_d
+        gap_idle = sv.idle_gap + sv.epsilon
+        lag = sv.in_flight + torch.arange(sv.n + 1, device=sv.device)
+        gap_vec = _gradient_gap_t(vn, lag, sv.eta, sv.beta)
+        # the users' sequential lag coupling, walked on the device (one
+        # launch a slot; with H == 0 the same walk is the elementwise rule)
+        start, gap_sum = online_replay(sv.waiting, base, rhs, gap_idle,
+                                       gap_vec, sv.H[:, 0])
+        sv.idle_gap = torch.where(sv.waiting & ~start,
+                                  sv.idle_gap + sv.epsilon, sv.idle_gap)
+        return carry, (start, gap_sum[:, None])
+
 
 @register_policy
 class OfflinePolicy(Policy):
@@ -321,6 +431,9 @@ class OfflinePolicy(Policy):
 
     name = "offline"
     supports_vectorized = True
+    supports_jax = True
+    # the knapsack plans on the host, one config at a time
+    supports_vmap = False
 
     def init_carry(self, n, cfg):
         return {"next_plan": 0.0}
@@ -397,6 +510,36 @@ class OfflinePolicy(Policy):
             return len(sidx), 0.0
         return 0, 0.0
 
+    def scan_statics(self, cfg) -> tuple:
+        return (int(cfg.offline_window),)
+
+    def scan_step(self, carry, sv):
+        # next_plan is a host number (it depends on t alone), so only a
+        # plan slot reads the device: the look-ahead window's (W, n)
+        # arrival rows and the waiting set go to the host, the plan back
+        nxt = carry["next_plan"]
+        if sv.t >= nxt:
+            (W,) = sv.statics
+            Wc = min(max(W, 0), sv.T)
+            row0 = min(sv.t, sv.T - Wc)
+            host = [x[0].cpu().numpy() for x in (
+                sv.waiting, sv.plan, sv.app,
+                sv.app_sched[:, row0:row0 + Wc],
+                sv.app_choice[:, row0:row0 + Wc], sv.T_COR, sv.SRATE)]
+            knobs = [float(x) for x in (
+                sv.offline_window, sv.L_b, sv.offline_resolution, sv.eta,
+                sv.beta, sv.v_norm0)]
+            waiting, plan, app, sched_w, choice_w, T_COR, SRATE = host
+            window = knobs[0]
+            plan = _offline_plan_host(
+                sv.t, waiting, plan, app, int(sv.version), sched_w,
+                choice_w, row0, T_COR, SRATE, *knobs)
+            sv.plan = torch.from_numpy(plan).to(sv.device)[None]
+            nxt = sv.t + window
+        start = sv.waiting & (((sv.plan == PLAN_CORUN) & sv.has_app) |
+                              (sv.plan == PLAN_SEP))
+        return {"next_plan": nxt}, (start, _no_gap(sv))
+
 
 # ---------------------------------------------------------------------------
 # Registered extras beyond the paper's four
@@ -412,6 +555,7 @@ class GreedyThresholdPolicy(Policy):
 
     name = "greedy"
     supports_vectorized = True
+    supports_jax = True
 
     def __init__(self, theta: float = 0.3, patience: int = 240):
         if patience < 0:
@@ -421,6 +565,9 @@ class GreedyThresholdPolicy(Policy):
 
     def init_carry(self, n, cfg):
         return {"waited": np.zeros(n, dtype=np.int64)}
+
+    def scan_operands(self, cfg):
+        return (self.theta, self.patience)
 
     def decide_loop(self, sim, t, waiting, carry):
         waited = carry["waited"]
@@ -456,6 +603,16 @@ class GreedyThresholdPolicy(Policy):
         waited[w & ~go] += 1
         return int(np.count_nonzero(go)), 0.0
 
+    def scan_step(self, carry, sv):
+        theta, patience = sv.consts
+        waited = carry["waited"]
+        delta = torch.where(sv.has_app, sv.pcor_g - sv.papp_g,
+                            sv.PT - sv.PI)
+        go = sv.waiting & ((delta <= theta) | (waited >= patience))
+        waited = torch.where(go, 0, torch.where(sv.waiting & ~go,
+                                                waited + 1, waited))
+        return {"waited": waited}, (go, _no_gap(sv))
+
 
 def _eps_draw(rng_key, n):
     """One slot's exploration draws: split the run key, draw ``(n,)`` f32
@@ -476,12 +633,16 @@ class EpsGreedyPolicy(Policy):
 
     name = "eps_greedy"
     supports_vectorized = True
+    supports_jax = True
 
     def __init__(self, eps: float = 0.05, theta: float = 0.3):
         if not 0.0 <= eps <= 1.0:
             raise ValueError(f"eps must be in [0, 1], got {eps}")
         self.eps = float(eps)
         self.theta = float(theta)
+
+    def scan_operands(self, cfg):
+        return (self.eps, self.theta)
 
     def decide_loop(self, sim, t, waiting, carry):
         s = sim.state
@@ -510,3 +671,16 @@ class EpsGreedyPolicy(Policy):
         if go.any():
             eng.begin_training(np.nonzero(go)[0])
         return int(np.count_nonzero(go)), 0.0
+
+    def scan_step(self, carry, sv):
+        eps, theta = sv.consts
+        # the host hooks' draw, on the device: one split and n uniforms a
+        # slot, unconditionally
+        keys = prng.split_t(sv.rng_key)
+        sv.rng_key = keys[..., 0, :]
+        u = prng.uniform_t(keys[..., 1, :], sv.n)
+        delta = torch.where(sv.has_app, sv.pcor_g - sv.papp_g,
+                            sv.PT - sv.PI)
+        # u against eps in f64, as the JAX scan compares them under x64
+        go = sv.waiting & ((u.to(eps.dtype) < eps) | (delta <= theta))
+        return carry, (go, _no_gap(sv))

@@ -18,15 +18,20 @@ jax has two forms of the key split and of the random bits, picked by its
 
 The port cannot read jax's config, so ``PARTITIONABLE`` mirrors it; it
 defaults to True (jax 0.9.0's default). ``set_partitionable`` flips it.
+
+``split_t`` and ``uniform_t`` are the device twin of ``split`` and
+``uniform``: the same bits from int64 tensors on any device, for the scan
+engine (core/vector_engine.py), which draws on the card.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 __all__ = ["PARTITIONABLE", "set_partitionable", "threefry2x32", "split",
-           "random_bits", "uniform"]
+           "random_bits", "uniform", "split_t", "uniform_t"]
 
 PARTITIONABLE = True
 
@@ -105,3 +110,71 @@ def uniform(key, shape) -> np.ndarray:
     bits = random_bits(key, tuple(shape))
     floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
     return floats - np.float32(1.0)
+
+
+# ---------------------------------------------------------------------------
+# The device twin: the same split and f32 uniform on int64 tensors, each
+# word held in the low 32 bits (torch's uint32 has only partial operator
+# support). Keys are (..., 2) tensors: a run's ``[0, seed]`` key, or one
+# key per config row of a batched run, (B, 2). The scan engine draws here,
+# on the device, from its state's key.
+# ---------------------------------------------------------------------------
+_MASK = 0xFFFFFFFF
+
+
+def threefry2x32_t(key, x0, x1):
+    """``threefry2x32`` on tensors: ``key`` (..., 2) int64, the count
+    words ``x0``/``x1`` (m,) int64; returns the two (..., m) output
+    words. Only the low 32 bits of a word matter, so the first word is
+    masked only at the end (it stays far below 2**63) and each rotation
+    is one add, ``(x >> (32 - d)) + x * 2**d``, masked with the xor that
+    follows: five tensor ops a round step."""
+    k0, k1 = key[..., 0:1], key[..., 1:2]
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x = [x0 + ks[0], (x1 + ks[1]) & _MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            rot = torch.add(x[1] >> (32 - r), x[1], alpha=1 << r)
+            x[1] = (rot ^ x[0]) & _MASK
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = (x[1] + (ks[(i + 2) % 3] + (i + 1))) & _MASK
+    return x[0] & _MASK, x[1]
+
+
+def _hash_flat_t(key, counts):
+    n = counts.shape[0]
+    if n % 2:
+        counts = torch.cat([counts, counts.new_zeros(1)])
+    half = counts.shape[0] // 2
+    y0, y1 = threefry2x32_t(key, counts[:half], counts[half:])
+    return torch.cat([y0, y1], dim=-1)[..., :n]
+
+
+def _counts_t(size, device):
+    return torch.arange(size, dtype=torch.int64, device=device)
+
+
+def split_t(key, num: int = 2):
+    """``split`` on a (..., 2) int64 key tensor: (..., num, 2)."""
+    if PARTITIONABLE:
+        # the flat index as a (hi, lo) pair: hi is 0 below 2**32
+        lo = _counts_t(num, key.device)
+        b0, b1 = threefry2x32_t(key, torch.zeros_like(lo), lo)
+        return torch.stack([b0, b1], dim=-1)
+    out = _hash_flat_t(key, _counts_t(2 * num, key.device))
+    return out.reshape(out.shape[:-1] + (num, 2))
+
+
+def uniform_t(key, size: int):
+    """``uniform(key, (size,))`` on a (..., 2) int64 key tensor: (...,
+    size) float32, equal to ``uniform``'s bits. A (2, n) draw is the
+    (2 * n,) one reshaped."""
+    counts = _counts_t(size, key.device)
+    if PARTITIONABLE:
+        b0, b1 = threefry2x32_t(key, torch.zeros_like(counts), counts)
+        bits = b0 ^ b1
+    else:
+        bits = _hash_flat_t(key, counts)
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0

@@ -20,16 +20,21 @@ simulator::
                  n_users=25, horizon_s=3600, V=5.0,
                  app_arrival_p=0.004).run(ml_hooks=make_ml_hooks(25)[0])
 
-    # the offline schedule (Alg. 1) over a knob grid, one run a point
-    results = Scenario(policy="offline", n_users=25,
-                       horizon_s=3600).sweep(L_b=[5.0, 1000.0])
+    # the paper's trace-mode experiment on the device scan engine
+    r = Scenario(policy="online", engine="jax", n_users=100_000,
+                 horizon_s=300).run()                 # device="cuda"
+
+    # a V grid as one batched scan on the card (16 points, one program)
+    results = Scenario(policy="online", n_users=25, horizon_s=600).sweep(
+        V=[2.5 * (k + 1) for k in range(16)])
 
 Strings resolve through the registries; objects pass through as-is.
 ``run_experiment(policy="online", n_users=25)`` builds the Scenario
-inline for one-liners. ``run_sweep`` runs its points one after another;
-the JAX package's batched config axis (same-shape points stacked under
-one compiled scan) waits for the port's scan engine (ROADMAP Queue 1
-item 6).
+inline for one-liners. ``run_sweep`` buckets its points by
+``sweep_bucket_key`` and runs each bucket of two or more as one stacked
+scan on ``device`` (``run_jax_sweep``), the rest one by one: a trace
+sweep on ``engine="auto"`` or ``"vectorized"`` joins a bucket, as in the
+JAX package, so ``Scenario.sweep()`` runs on the card by default.
 """
 from __future__ import annotations
 
@@ -94,11 +99,12 @@ class Scenario:
         self.name = name if name is not None else self.policy.name
 
     def build(self, ml_hooks: Optional[dict] = None,
-              ml_backend: Optional[BatchedMLBackend] = None
-              ) -> FederatedSim:
+              ml_backend: Optional[BatchedMLBackend] = None,
+              device="cuda") -> FederatedSim:
         """Construct the (seeded) simulator without running it.
         ``ml_hooks`` (per-user hooks, ``make_ml_hooks``) run on the loop
-        engine; pass them only to scenarios without ``ml=``."""
+        engine; pass them only to scenarios without ``ml=``. ``device``
+        is where the device scan engine runs (``FederatedSim``)."""
         backend = ml_backend
         if backend is None and self.ml is not None:
             if ml_hooks is not None:
@@ -115,11 +121,17 @@ class Scenario:
                                    sync=self.policy.sync_rounds, **kw)
         return FederatedSim(self.config, ml_hooks=ml_hooks,
                             ml_backend=backend,
-                            arrivals=self.arrivals, fleet=self.fleet)
+                            arrivals=self.arrivals, fleet=self.fleet,
+                            device=device)
 
     def run(self, ml_hooks: Optional[dict] = None,
-            ml_backend: Optional[BatchedMLBackend] = None) -> SimResult:
-        return self.build(ml_hooks=ml_hooks, ml_backend=ml_backend).run()
+            ml_backend: Optional[BatchedMLBackend] = None,
+            device="cuda") -> SimResult:
+        """Build and run. ``device`` is read only by the device scan
+        engine (``engine="jax"``): ``"cuda"`` by default, ``"cpu"`` when
+        the caller asks for it."""
+        return self.build(ml_hooks=ml_hooks, ml_backend=ml_backend,
+                          device=device).run()
 
     def grid(self, **axes) -> List["Scenario"]:
         """Cartesian product of ``SimConfig`` overrides as a scenario
@@ -139,9 +151,10 @@ class Scenario:
                                 ml_kwargs=self.ml_kwargs or None))
         return out
 
-    def sweep(self, **axes) -> List[SimResult]:
-        """``run_sweep(self.grid(**axes))``; results in ``grid`` order."""
-        return run_sweep(self.grid(**axes))
+    def sweep(self, device="cuda", **axes) -> List[SimResult]:
+        """``run_sweep(self.grid(**axes), device=device)``; results in
+        ``grid`` order."""
+        return run_sweep(self.grid(**axes), device=device)
 
     def __repr__(self):
         flt = self.fleet.name if self.fleet is not None else "paper"
@@ -153,18 +166,49 @@ class Scenario:
                 f"horizon_s={self.config.horizon_s}{ml})")
 
 
-def run_sweep(scenarios) -> List[SimResult]:
-    """Run many ``Scenario``s, one after another, each as its own
-    ``Scenario.run()``; results in input order. (The JAX package batches
-    same-shape points under one compiled scan; each of its results equals
-    the point's own run, which is what this returns.)"""
+def run_sweep(scenarios, device="cuda") -> List[SimResult]:
+    """Run many ``Scenario``s, batching compatible ones as ONE stacked
+    scan on ``device`` (``vector_engine.run_jax_sweep``).
+
+    Points are bucketed by ``sweep_bucket_key`` (shapes, chunk, hook
+    behaviours, statics, push-buffer capacity): each bucket of two or more
+    runs batched; singletons and points that cannot batch (real-ML runs,
+    offline's host knapsack, ``engine="loop"``, components without scan
+    hooks, ``jax_chunk=0``) run as their own ``run()``. Results come back
+    in input order, each equal to its per-point scan run (discrete
+    outputs bit for bit, energies to float-sum order).
+
+    A point that runs alone holds its sim only for its own run, and a
+    real-ML point (which never batches) builds its backend just before
+    it: a sweep keeps one point's model on the card at a time."""
+    from .vector_engine import run_jax_sweep, sweep_bucket_key
     scenarios = list(scenarios)
+    sims: List[Optional[FederatedSim]] = []
     for sc in scenarios:
         if not isinstance(sc, Scenario):
             raise TypeError(
                 f"run_sweep takes Scenarios, got {type(sc).__name__}; "
                 "build one with Scenario(...) or Scenario.grid(...)")
-    return [sc.run() for sc in scenarios]
+        sims.append(None if sc.ml is not None else sc.build(device=device))
+    buckets: dict = {}
+    for idx, sim in enumerate(sims):
+        key = None if sim is None else sweep_bucket_key(sim)
+        buckets.setdefault(key, []).append(idx)
+    results: List[Optional[SimResult]] = [None] * len(sims)
+    for key, idxs in buckets.items():
+        if key is not None and len(idxs) >= 2:
+            batch = [sims[i] for i in idxs]
+            for i in idxs:
+                sims[i] = None
+            for i, res in zip(idxs, run_jax_sweep(batch)):
+                results[i] = res
+        else:
+            for i in idxs:
+                sim = sims[i] if sims[i] is not None \
+                    else scenarios[i].build(device=device)
+                sims[i] = None
+                results[i] = sim.run()
+    return results
 
 
 def run_experiment(scenario: Optional[Scenario] = None, *,

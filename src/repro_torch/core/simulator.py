@@ -16,9 +16,14 @@ Engines (``SimConfig.engine``): this class's per-user object loop is the
 reference oracle (``"loop"``); ``"vectorized"`` runs the same semantics on
 struct-of-arrays state (core/vector_engine.py), and ``"auto"`` picks it
 for hook-free trace runs and for real runs with a batched backend, as in
-the JAX package. Both engines thread ONE ``EngineState`` (``sim.state``).
-The JAX package's accelerator scan (``"jax"``) is ROADMAP Queue 1 item 6
-and raises ``NotImplementedError``.
+the JAX package. ``"jax"`` is the device scan engine (the name kept for
+parity with the JAX package's API): the same slot on ``(B, n)`` tensors
+on the card (``FederatedSim(device=...)``, default ``"cuda"``), chunked
+into ``jax_chunk`` slots, with the push log streamed through a
+``PushBuffer`` (core/vector_engine.py). It runs hook-free trace runs of
+policies, rules and dynamics that have their scan hooks, and degrades to
+the numpy engine (or the loop) otherwise, by the JAX package's rule. All
+engines thread ONE ``EngineState`` (``sim.state``).
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from typing import Any, List, Optional, Union
 import numpy as np
 
 from ..kernels.fused_update import KERNEL_MODES
-from .aggregation import AggregationRule, resolve_aggregation
+from .aggregation import (AggregationRule, aggregation_support,
+                          resolve_aggregation)
 from .arrivals import ArrivalProcess, resolve_arrival_or_default
 from .dynamics import (DROPOUT_RULES, DeviceDynamics, dynamics_support,
                        resolve_dynamics)
@@ -40,6 +46,9 @@ from .lyapunov import OnlineScheduler
 from .policies import Policy, engine_support, resolve_policy
 from .staleness import gradient_gap
 
+# The paper's four schedulers (Sec. VII.B). The full registry — these plus
+# any registered extras — is policies.registered_policies().
+POLICIES = ("sync", "immediate", "offline", "online")
 ENGINES = ("auto", "loop", "vectorized", "jax")
 
 
@@ -74,8 +83,15 @@ class SimConfig:
     trace_every: int = 30           # slots between trace samples
     include_scheduler_overhead: bool = False
     v_norm0: float = 1.0            # trace-mode momentum-norm model scale
-    engine: str = "auto"            # auto | loop | vectorized (jax: to port)
+    engine: str = "auto"            # auto | loop | vectorized | jax
     collect_push_log: bool = True
+    jax_chunk: int = 1024           # slots per chunk of the device scan
+    #                                 engine; 0 = auto-tune from device
+    #                                 memory (core/autotune.py)
+    push_log_capacity: int = 0      # initial per-chunk push buffer rows
+    #                                 of the scan engine (0 = auto-sized;
+    #                                 doubled and the chunk re-run on
+    #                                 overflow)
     # device dynamics (core/dynamics.py): "none" is the paper's always-on
     # fleet; "markov" (or a MarkovChurnDynamics) churns availability,
     # battery and network
@@ -94,6 +110,11 @@ class SimConfig:
                 f"policy {pol.name!r} sets supports_vectorized but "
                 "implements no decide_vectorized hook; implement "
                 "decide_vectorized(eng, t, carry) or clear the flag")
+        if pol.supports_jax and not sup["jax"]:
+            raise ValueError(
+                f"policy {pol.name!r} sets supports_jax but implements no "
+                "scan_step hook; implement scan_step(carry, sv) or clear "
+                "the flag to degrade to the numpy engine")
         if self.engine == "vectorized" and not sup["vectorized"]:
             raise ValueError(
                 f"policy {pol.name!r} implements no vectorized "
@@ -104,13 +125,31 @@ class SimConfig:
         if self.kernel not in KERNEL_MODES:
             raise ValueError(f"unknown kernel {self.kernel!r}; "
                              f"expected one of {KERNEL_MODES}")
-        resolve_aggregation(self.aggregation)    # raises on unknowns
+        agg = resolve_aggregation(self.aggregation)  # raises on unknowns
+        asup = aggregation_support(agg)
+        if not asup["host"]:
+            raise ValueError(
+                f"aggregation rule {agg.name!r} implements no weight() "
+                "host path; every rule needs one (the loop oracle and "
+                "the numpy engine run on it)")
+        if agg.supports_jax and not asup["jax"]:
+            raise ValueError(
+                f"aggregation rule {agg.name!r} sets supports_jax but "
+                "implements no scan_weight hook; implement "
+                "scan_weight(carry, pv) or clear the flag to degrade to "
+                "the numpy engine")
         dyn = resolve_dynamics(self.dynamics)    # raises on unknowns
-        if not dynamics_support(dyn)["host"]:
+        dsup = dynamics_support(dyn)
+        if not dsup["host"]:
             raise ValueError(
                 f"dynamics {dyn.name!r} implements no host_step() path; "
                 "every active dynamics needs one (the loop oracle and "
                 "the numpy engine run on it)")
+        if dyn.active and dyn.supports_jax and not dsup["jax"]:
+            raise ValueError(
+                f"dynamics {dyn.name!r} sets supports_jax but implements "
+                "no scan_step hook; implement scan_step(dyn, dv) or "
+                "clear the flag to degrade to the numpy engine")
         if dyn.active and dyn.dropout not in DROPOUT_RULES:
             raise ValueError(
                 f"dynamics {dyn.name!r} has unknown dropout rule "
@@ -154,6 +193,14 @@ class SimConfig:
         if self.trace_every <= 0:
             raise ValueError(
                 f"trace_every must be positive, got {self.trace_every}")
+        if self.jax_chunk < 0:
+            raise ValueError(
+                f"jax_chunk must be positive (or 0 = auto-tune from "
+                f"device memory), got {self.jax_chunk}")
+        if self.push_log_capacity < 0:
+            raise ValueError(
+                f"push_log_capacity must be non-negative, got "
+                f"{self.push_log_capacity}")
 
 
 @dataclasses.dataclass
@@ -214,7 +261,8 @@ class FederatedSim:
     def __init__(self, cfg: SimConfig, ml_hooks: Optional[dict] = None, *,
                  ml_backend=None,
                  arrivals: Union[str, ArrivalProcess, None] = None,
-                 fleet: Union[str, Fleet, None] = None):
+                 fleet: Union[str, Fleet, None] = None,
+                 device="cuda"):
         """``ml_hooks`` (real mode, the loop engine): {"pull": fn(uid) ->
         params, "local_train": fn(uid, params) -> params, "push": fn(uid,
         params) -> PushResult, "evaluate": fn() -> acc, "v_norm": fn() ->
@@ -232,12 +280,18 @@ class FederatedSim:
         JAX package's order (fleet shuffle, then the arrival blocks), so
         seeded schedules equal its schedules bit for bit.
 
+        ``device`` is where the device scan engine (``engine="jax"``)
+        runs: ``"cuda"`` (the default; a run without CUDA raises) or
+        ``"cpu"``, which the caller asks for. It is read only when that
+        engine runs; the loop and numpy engines run on the host.
+
         ``self.state`` is the run's ``EngineState``. The loop oracle keeps
         its per-user ``UserState`` objects as the working view and routes
         the scalars (version, in_flight, round_open), the rng key and the
         carries through the container; the numpy engine consumes it
         whole."""
         self.cfg = cfg
+        self.device = device
         self.policy = resolve_policy(cfg.policy)
         self.agg = resolve_aggregation(cfg.aggregation)
         self.dynamics = resolve_dynamics(cfg.dynamics)
@@ -391,30 +445,43 @@ class FederatedSim:
 
     # ------------------------------------------------------------------ main
     def resolve_engine(self) -> str:
-        """The engine this run takes. The numpy engine covers hook-free
-        trace runs (a ``v_norm`` hook alone is slot-constant and allowed)
-        and real runs with a batched ``ml_backend``; ``auto`` picks it
-        there when the policy implements ``decide_vectorized``, else the
-        loop oracle, which runs everything. ``engine="jax"`` (the scan
-        engine) is ROADMAP Queue 1 item 6."""
+        """The engine this run takes (the JAX package's rule). The numpy
+        engine covers hook-free trace runs (a ``v_norm`` hook alone is
+        slot-constant and allowed) and real runs with a batched
+        ``ml_backend``; ``auto`` picks it there when the policy implements
+        ``decide_vectorized``, else the loop oracle, which runs
+        everything. ``jax``, the device scan engine, runs hook-free trace
+        runs whose policy has ``scan_step``, whose dynamics (if active)
+        has ``scan_step`` and whose rule has ``scan_weight`` (when a push
+        log is collected); otherwise it degrades to the numpy engine when
+        the policy has that hook, else to the loop."""
         cfg = self.cfg
-        if cfg.engine == "jax":
-            raise NotImplementedError(
-                "engine='jax' has no port yet; its GPU counterpart is the "
-                "scan engine of ROADMAP Queue 1 item 6; use engine='auto'")
+        pol = self.policy
         vec_ok = (cfg.ml_mode == "trace" and set(self.ml) <= {"v_norm"}) \
             or (cfg.ml_mode == "real" and self.ml_backend is not None)
-        if cfg.engine == "auto":
-            return "vectorized" if (vec_ok and
-                                    self.policy.supports_vectorized) \
+        engine = cfg.engine
+        if engine == "auto":
+            return "vectorized" if (vec_ok and pol.supports_vectorized) \
                 else "loop"
-        if cfg.engine == "vectorized" and not vec_ok:
+        if engine in ("vectorized", "jax") and not vec_ok:
             raise ValueError(
-                "engine='vectorized' supports trace-mode runs without "
+                f"engine={engine!r} supports trace-mode runs without "
                 "per-user ML hooks, or ml_mode='real' with a batched "
                 "ml_backend; use engine='loop' (or 'auto') for hook-based "
                 "real-ML runs")
-        return cfg.engine
+        if engine == "vectorized" and not pol.supports_vectorized:
+            raise ValueError(
+                f"policy {pol.name!r} implements no vectorized hook; "
+                "use engine='loop' (or 'auto')")
+        if engine == "jax":
+            agg_ok = aggregation_support(self.agg)["jax"] or \
+                not cfg.collect_push_log
+            dyn_ok = dynamics_support(self.dynamics)["jax"]
+            if pol.supports_jax and agg_ok and dyn_ok and \
+                    not self.ml and self.ml_backend is None:
+                return "jax"
+            return "vectorized" if pol.supports_vectorized else "loop"
+        return engine
 
     def run(self) -> SimResult:
         if getattr(self, "_ran", False):
@@ -427,10 +494,11 @@ class FederatedSim:
             self.sched.Q = 0.0
             self.sched.H = 0.0
         self._ran = True
-        if self.resolve_engine() == "loop":
+        engine = self.resolve_engine()
+        if engine == "loop":
             return self._run_loop()
         from .vector_engine import run_vectorized
-        return run_vectorized(self)
+        return run_vectorized(self, backend=engine)
 
     def _run_loop(self) -> SimResult:
         cfg = self.cfg

@@ -18,7 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels.fused_update.ops import tree_leaves
+from ..kernels.fused_update.ops import tree_leaves, tree_map
 
 
 def momentum_scale(lag, eta: float, beta: float):
@@ -46,6 +46,21 @@ def gradient_gap(v_norm, lag, eta: float, beta: float):
 def tree_l2_norm(tree: Any) -> float:
     """||v||_2 over a tree of tensors (f32 accumulation)."""
     sq = sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree))
+    return float(torch.sqrt(sq))
+
+
+def predict_weights(theta: Any, v: Any, lag: float, eta: float, beta: float):
+    """Eq. (3): linear weight prediction of the future global parameters,
+    leaf by leaf over a tree of torch tensors or numpy arrays."""
+    s = momentum_scale(lag, eta, beta)
+    return tree_map(lambda t, m: t - s * m, theta, v)
+
+
+def true_gap(theta_t: Any, theta_tau: Any) -> float:
+    """Eq. (2): the exact distance between two parameter trees (torch or
+    numpy leaves; f32 accumulation), which validates the LWP estimate."""
+    sq = sum(torch.sum(torch.square(torch.as_tensor(a - b).float()))
+             for a, b in zip(tree_leaves(theta_t), tree_leaves(theta_tau)))
     return float(torch.sqrt(sq))
 
 

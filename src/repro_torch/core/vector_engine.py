@@ -27,23 +27,58 @@ engine — identical decision sequences, update counts, push logs and
 queue traces in trace mode; in real mode the schedule is identical while
 H == 0 (the online argmin then ignores the momentum norm) and the float
 metrics agree within the tolerances of ``tests/test_torch_slice.py``.
+
+The device scan engine (``engine="jax"``, the counterpart of the JAX
+package's chunked ``lax.scan``) runs the same slot on the card: every
+per-user field of the ``EngineState`` is a ``(B, n)`` tensor (float64,
+int64 or bool) with a leading config axis, every scheduler scalar and
+knob a ``(B, 1)`` tensor. A run is ``B = 1``; ``run_jax_sweep`` stacks
+the points of a sweep bucket (``sweep_bucket_key``) as ``B > 1`` and
+advances them together, as ``jax.vmap`` does for the reference. The
+policy's ``scan_step``, the rule's ``scan_weight`` and the dynamics'
+``scan_step`` supply the decisions, the push-log weights and the churn;
+arrivals, cooldowns, training, Eq. (10) energy and Eqs. (15)/(16) queues
+are engine code. The horizon runs in chunks of ``SimConfig.jax_chunk``
+slots (0: auto-tuned, core/autotune.py); inside a chunk the host reads
+nothing from the device (offline's plan slots excepted, where its
+knapsack runs on the host), and online's sequential in-slot replay is
+one CUDA C++ launch a slot (``kernels/online_replay``). Pushes are
+scattered into a ``PushBuffer`` at ``count + rank`` in user order, rows
+past the capacity dropped by masking while ``count`` stays exact; the
+buffer is drained once a chunk, and a chunk that overflowed it is re-run
+from its entry state with the capacity doubled to the next power of two
+(the whole batch). Against the JAX package's jax engine under x64 and
+the numpy engine: the schedule (t, user, lag, corun) is equal, energy and
+``mean_Q`` within rel 1e-9, ``mean_H`` within rel 1e-6 (the replay sums
+the gaps in user order, numpy pairwise), gaps and weights within rtol
+1e-9. After a scan run ``sim.scan_info`` records the chunk, the final
+push-buffer capacity, the overflow retries, the batch size and the
+auto-tuner's namespace (``None`` unless ``jax_chunk=0``).
 """
 from __future__ import annotations
 
+import dataclasses
+from types import SimpleNamespace
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from .engine_state import (MODE_COOL, MODE_OFF, MODE_TRAIN, MODE_WAIT,
-                           PLAN_HOLD, PushLog)
+                           PLAN_HOLD, EngineState, PushBuffer, PushLog)
+from .policies import _gradient_gap_t, _trace_v_norm_t
 from .simulator import SimResult, n_slots, trace_v_norm
 from .staleness import gradient_gap
 
-__all__ = ["run_vectorized"]
+__all__ = ["run_vectorized", "run_jax_sweep", "sweep_bucket_key"]
 
 
-def run_vectorized(sim) -> SimResult:
-    """Run ``sim`` (a constructed FederatedSim) on the numpy engine."""
+def run_vectorized(sim, backend: str = "vectorized") -> SimResult:
+    """Run ``sim`` (a constructed FederatedSim) on the numpy engine, or on
+    the device scan engine with ``backend="jax"`` (on ``sim.device``)."""
+    if backend == "jax":
+        return _Scan([sim], resolve_device(sim.device)).run()[0]
     return _NumpyEngine(sim).run()
 
 
@@ -326,3 +361,523 @@ class _NumpyEngine:
             mean_H=s.sum_H / T if T else 0.0,
             corun_fraction=s.corun_updates / max(updates_total, 1),
             drops=dynamics.total_drops(s.dyn))
+
+
+# ======================================================================
+# The device scan engine: the slot on (B, n) tensors, chunked
+# ======================================================================
+_F, _I = torch.float64, torch.int64
+# the scheduler scalars of EngineState (each a (B, 1) tensor on the card)
+_SCALARS = {"version": _I, "in_flight": _I, "round_open": torch.bool,
+            "Q": _F, "H": _F, "sum_Q": _F, "sum_H": _F,
+            "corun_updates": _I}
+_PER_USER = ("mode", "cooldown", "app", "app_rem", "train_rem", "corun",
+             "idle_gap", "pulled_at", "energy", "updates", "plan")
+# SimConfig knobs the slot reads, (B, 1) each
+_KNOBS = ("V", "L_b", "epsilon", "eta", "beta", "v_norm0", "t_d",
+          "ready_delay", "offline_window", "offline_resolution")
+
+
+def _next_pow2(k: int) -> int:
+    c = 1
+    while c < k:
+        c <<= 1
+    return c
+
+
+def _scan_setup(sim):
+    """Host operands of one sim: its catalog gathers, arrivals, knobs,
+    hook operands and the push buffer's first capacity. ``jax_chunk=0``
+    (and a push log without ``push_log_capacity``) resolves against the
+    device memory budget (core/autotune.py)."""
+    cfg = sim.cfg
+    n, T = cfg.n_users, n_slots(cfg)
+    collect = cfg.collect_push_log
+    tune = None
+    chunk = cfg.jax_chunk
+    if chunk == 0:
+        from .autotune import autotune_scan_params
+        tune = autotune_scan_params(sim)
+        chunk = tune.jax_chunk
+    chunk = min(chunk, T) if T else 0
+    if not collect:
+        cap = 0
+    elif cfg.push_log_capacity:
+        cap = _next_pow2(cfg.push_log_capacity)
+    elif tune is not None:
+        cap = tune.push_capacity
+    else:
+        cap = _next_pow2(max(1024, 2 * n))
+    return SimpleNamespace(
+        n=n, T=T, chunk=chunk, collect=collect, cap=cap, tune=tune,
+        tables=tuple(np.asarray(a, np.float64) for a in _user_tables(sim)),
+        app_sched=np.asarray(sim.app_sched[:T], bool),
+        app_choice=np.asarray(sim.app_choice[:T], np.int32),
+        knobs=tuple(getattr(cfg, k) for k in _KNOBS),
+        pol_ops=tuple(sim.policy.scan_operands(cfg)),
+        agg_ops=tuple(sim.agg.scan_operands(cfg)),
+        dyn_ops=tuple(sim.dynamics.scan_operands(cfg))
+        if sim.dynamics.active else (),
+        statics=tuple(sim.policy.scan_statics(cfg)),
+        overhead=cfg.include_scheduler_overhead)
+
+
+def _column(values, dev, dtype=None):
+    """Per-config numbers -> a (B, 1) tensor: ``dtype``, else floats f64,
+    ints int64, bools bool."""
+    a = np.asarray(values)
+    if dtype is None:
+        dtype = _F if a.dtype.kind == "f" else \
+            torch.bool if a.dtype.kind == "b" else _I
+    return torch.as_tensor(a.reshape(-1, 1)).to(dev, dtype)
+
+
+def _stack_leaf(leaves, dev):
+    """One carry/dyn leaf of B configs: numpy arrays -> a (B, *shape)
+    tensor ((B, 1) for 0-d) in the engine's dtypes; Python numbers stay
+    on the host and must agree across the batch."""
+    if not isinstance(leaves[0], np.ndarray):
+        if any(x != leaves[0] for x in leaves[1:]):
+            raise ValueError(
+                "a carry's Python-number leaves must be equal across a "
+                f"sweep bucket; got {leaves}")
+        return leaves[0]
+    a = np.stack([np.asarray(x) for x in leaves])
+    if a.ndim == 1:
+        a = a[:, None]
+    dtype = _F if a.dtype.kind == "f" else \
+        torch.bool if a.dtype.kind == "b" else _I
+    return torch.as_tensor(a).to(dev, dtype)
+
+
+def _stack_tree(trees, dev):
+    if trees[0] is None:
+        return None
+    if isinstance(trees[0], dict):
+        return {k: _stack_tree([t[k] for t in trees], dev) for k in trees[0]}
+    return _stack_leaf(trees, dev)
+
+
+def _state_to_device(states, dev) -> EngineState:
+    """B host EngineStates -> one EngineState of stacked device tensors
+    (one transfer a field)."""
+    kw = {}
+    for f in _PER_USER:
+        a = np.stack([getattr(s, f) for s in states])
+        dtype = torch.bool if a.dtype == np.bool_ else \
+            _F if a.dtype.kind == "f" else _I
+        kw[f] = torch.as_tensor(a).to(dev, dtype)
+    for f, dtype in _SCALARS.items():
+        kw[f] = torch.as_tensor(
+            np.asarray([getattr(s, f) for s in states]).reshape(-1, 1)
+        ).to(dev, dtype)
+    kw["rng_key"] = torch.as_tensor(np.stack(
+        [np.asarray(s.rng_key, np.uint32).astype(np.int64)
+         for s in states])).to(dev)
+    for f in ("carry", "agg_carry", "dyn"):
+        kw[f] = _stack_tree([getattr(s, f) for s in states], dev)
+    return EngineState(**kw)
+
+
+def _tree_to_host(tree, b, like):
+    """Row ``b`` of a host copy of a stacked carry/dyn tree, each leaf in
+    the shape of ``like`` (the run's initial host tree)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_to_host(v, b, like[k]) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray):
+        return tree[b].reshape(np.shape(like))
+    return tree
+
+
+def _state_to_host(state: EngineState, initial) -> List[EngineState]:
+    """The batch's final device state as host EngineStates (numpy
+    arrays, Python scalars; ``initial`` the rows' starting host states),
+    read in one transfer a field, so that ``sim.state`` reads as after a
+    numpy-engine run."""
+    host = {f: getattr(state, f).cpu().numpy()
+            for f in _PER_USER + tuple(_SCALARS) + ("rng_key",)}
+    trees = {f: _map_tensors(lambda x: x.cpu().numpy(), getattr(state, f))
+             for f in ("carry", "agg_carry", "dyn")}
+    out = []
+    for b, init in enumerate(initial):
+        kw = {f: host[f][b] for f in _PER_USER}
+        for f, dtype in _SCALARS.items():
+            v = host[f][b, 0]
+            kw[f] = bool(v) if dtype == torch.bool else \
+                float(v) if dtype == _F else int(v)
+        kw["rng_key"] = host["rng_key"][b].astype(np.uint32)
+        for f in ("carry", "agg_carry", "dyn"):
+            kw[f] = _tree_to_host(trees[f], b, getattr(init, f))
+        out.append(EngineState(**kw))
+    return out
+
+
+def _map_tensors(fn, tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
+class _Scan:
+    """One batch of sims on one device: the stacked operands and the
+    slot step. ``step(state, t)`` advances every config row one slot;
+    ``run()`` drives the chunks, drains the push buffer and decodes the
+    rows."""
+
+    def __init__(self, sims, dev):
+        self.sims = sims
+        self.dev = dev
+        self.B = len(sims)
+        preps = [_scan_setup(s) for s in sims]
+        p0 = preps[0]
+        self.n, self.T, self.chunk = p0.n, p0.T, p0.chunk
+        self.collect, self.cap, self.tune = p0.collect, p0.cap, p0.tune
+        self.overhead, self.statics = p0.overhead, p0.statics
+        sim0 = sims[0]
+        self.cfg0 = sim0.cfg
+        self.policy, self.agg, self.dynamics = \
+            sim0.policy, sim0.agg, sim0.dynamics
+        self.dyn_active = self.dynamics.active
+        self.dyn_lose = self.dynamics.dropout == "lose"
+
+        def stack(arrs, dtype):
+            return torch.as_tensor(np.stack(arrs)).to(dev, dtype)
+
+        tabs = [stack([p.tables[k] for p in preps], _F) for k in range(8)]
+        (self.PT, self.TT, self.PI, self.PS, self.P_APP, self.P_COR,
+         self.T_COR, self.SRATE) = tabs
+        self.app_sched = stack([p.app_sched for p in preps], torch.bool)
+        self.app_choice = stack([p.app_choice for p in preps], torch.int32)
+        self.knobs = {k: _column([p.knobs[i] for p in preps], dev,
+                                 _I if k == "ready_delay" else _F)
+                      for i, k in enumerate(_KNOBS)}
+
+        def ops(name):
+            rows = [getattr(p, name) for p in preps]
+            return tuple(_column([r[k] for r in rows], dev)
+                         for k in range(len(rows[0])))
+
+        self.pol_ops, self.agg_ops, self.dyn_ops = \
+            ops("pol_ops"), ops("agg_ops"), ops("dyn_ops")
+        self.ar = torch.arange(self.n, device=dev)
+        self.ar_f = self.ar.to(_F)
+
+    # ------------------------------------------------------------ the slot
+    def _gather(self, table, aid):
+        return torch.gather(table, 2, aid[..., None]).squeeze(-1)
+
+    def step(self, s: EngineState, t: int) -> EngineState:
+        n, kn = self.n, self.knobs
+        t_d, ready_delay = kn["t_d"], kn["ready_delay"]
+        policy = self.policy
+        mode, cooldown, app, app_rem = s.mode, s.cooldown, s.app, s.app_rem
+        train_rem, corun, idle_gap = s.train_rem, s.corun, s.idle_gap
+        pulled_at, energy, updates = s.pulled_at, s.energy, s.updates
+        version, in_flight = s.version, s.in_flight
+        rng_key, dyn = s.rng_key, s.dyn
+
+        # device dynamics, first in the slot (its draw precedes the
+        # policy's, as on the host engines)
+        if self.dyn_active:
+            dv = SimpleNamespace(n=n, device=self.dev, rng_key=rng_key,
+                                 mode=mode, corun=corun, t_d=t_d,
+                                 fp_zero=0.0, consts=self.dyn_ops,
+                                 float_dtype=_F, int_dtype=_I)
+            dyn, eff = self.dynamics.scan_step(dyn, dv)
+            rng_key = dv.rng_key
+            up, net_extra = eff.up, eff.net_extra
+            wd = eff.went_down
+            dwait = wd & (mode == MODE_WAIT)
+            dtrain = wd & (mode == MODE_TRAIN)
+            dcool = wd & (mode == MODE_COOL)
+            departures = dwait.sum(-1, keepdim=True)
+            if self.dyn_lose:
+                mode = torch.where(dwait | dtrain | dcool, MODE_OFF, mode)
+                train_rem = torch.where(dtrain, 0.0, train_rem)
+                in_flight = in_flight - dtrain.sum(-1, keepdim=True)
+            else:       # resume: paused, pays the extra seconds
+                mode = torch.where(dwait | dcool, MODE_OFF, mode)
+                train_rem = torch.where(
+                    dtrain, train_rem + eff.resume_penalty, train_rem)
+            ret = eff.went_up & (mode == MODE_OFF)
+            mode = torch.where(ret, MODE_COOL, mode)
+            cooldown = torch.where(ret, ready_delay + net_extra, cooldown)
+
+        # app arrivals and expiries
+        srow, crow = self.app_sched[:, t], self.app_choice[:, t]
+        has_app0 = app >= 0
+        new_app = srow & ~has_app0
+        app_rem = torch.where(has_app0, app_rem - t_d, app_rem)
+        ended = has_app0 & (app_rem <= 0.0)
+        app = torch.where(ended, -1, app)
+        app_rem = torch.where(ended, 0.0, app_rem)
+        app = torch.where(new_app, crow.to(_I), app)
+        aid = app.clamp_min(0)
+        tcor_g = self._gather(self.T_COR, aid)
+        papp_g = self._gather(self.P_APP, aid)
+        pcor_g = self._gather(self.P_COR, aid)
+        app_rem = torch.where(new_app, tcor_g, app_rem)
+
+        # cooldown -> waiting (queue arrivals)
+        cooling = mode == MODE_COOL
+        cooldown = torch.where(cooling, cooldown - 1, cooldown)
+        to_wait = cooling & (cooldown <= 0)
+        mode = torch.where(to_wait, MODE_WAIT, mode)
+        plan = torch.where(to_wait, PLAN_HOLD, s.plan)
+        arrivals = to_wait.sum(-1, keepdim=True)
+        waiting = mode == MODE_WAIT
+        has_app = app >= 0
+
+        # the policy's decisions
+        sv = SimpleNamespace(
+            n=n, T=self.T, t=t, device=self.dev, float_dtype=_F,
+            int_dtype=_I, waiting=waiting, has_app=has_app, app=app,
+            updates=updates, pcor_g=pcor_g, papp_g=papp_g, tcor_g=tcor_g,
+            PT=self.PT, TT=self.TT, PI=self.PI, PS=self.PS,
+            T_COR=self.T_COR, SRATE=self.SRATE, app_sched=self.app_sched,
+            app_choice=self.app_choice, plan=plan, idle_gap=idle_gap,
+            in_flight=in_flight, version=version, round_open=s.round_open,
+            Q=s.Q, H=s.H, rng_key=rng_key, consts=self.pol_ops,
+            statics=self.statics,
+            **{k: v for k, v in kn.items() if k != "ready_delay"})
+        carry, (start, gap_sum) = policy.scan_step(s.carry, sv)
+        idle_gap, round_open = sv.idle_gap, sv.round_open
+        plan, rng_key = sv.plan, sv.rng_key
+        served = start.sum(-1, keepdim=True)
+
+        # begin training
+        mode = torch.where(start, MODE_TRAIN, mode)
+        corun = torch.where(start, has_app, corun)
+        train_rem = torch.where(start, torch.where(has_app, tcor_g, self.TT),
+                                train_rem)
+        pulled_at = torch.where(start, version, pulled_at)
+        in_flight = in_flight + served
+
+        # training progression (a down "resume" trainer is paused)
+        training = mode == MODE_TRAIN
+        if self.dyn_active:
+            training = training & up
+        train_rem = torch.where(training, train_rem - t_d, train_rem)
+        fin = training & (train_rem <= 0.0)
+        kfin = fin.sum(-1, keepdim=True)
+        updates = updates + fin
+        mode = torch.where(fin, MODE_COOL, mode)
+        cooldown = torch.where(
+            fin, ready_delay + net_extra if self.dyn_active else ready_delay,
+            cooldown)
+        idle_gap = torch.where(fin, 0.0, idle_gap)
+        in_flight = in_flight - kfin
+        corun_updates = s.corun_updates + (fin & corun).sum(-1, keepdim=True)
+
+        # push events: one row a finisher at count + its rank in user
+        # order; rows past the capacity go to the dump row and are lost,
+        # the count stays exact
+        events, agg_carry = s.events, s.agg_carry
+        if self.collect:
+            fin_i = fin.to(_I)
+            rank = torch.cumsum(fin_i, -1) - fin_i
+            if policy.sync_rounds:
+                lag = version - pulled_at
+                vn = _trace_v_norm_t(kn["v_norm0"], version)
+            else:
+                vers = version + rank
+                lag = vers - pulled_at
+                vn = _trace_v_norm_t(kn["v_norm0"], vers)
+            gap = _gradient_gap_t(vn, lag, kn["eta"], kn["beta"])
+            if policy.sync_rounds:
+                w = torch.ones_like(gap)    # FedAvg rounds average
+            else:
+                pv = SimpleNamespace(lag=lag, gap=gap, v_norm=vn,
+                                     users=self.ar, consts=self.agg_ops,
+                                     float_dtype=_F)
+                agg_carry, w = self.agg.scan_weight(agg_carry, pv)
+                w = w.expand(gap.shape)
+            rows = torch.stack(
+                [torch.full_like(gap, t), self.ar_f.expand(gap.shape),
+                 lag.to(_F), gap, corun.to(_F), w.to(_F)], dim=-1)
+            cap = events.rows.shape[1] - 1
+            pos = events.count + rank
+            pos = torch.where(fin & (pos < cap), pos, cap)
+            events.rows.scatter_(1, pos[..., None].expand(rows.shape), rows)
+            events = PushBuffer(events.rows, events.count + kfin)
+
+        if policy.sync_rounds:
+            closed = round_open & \
+                ((mode == MODE_TRAIN).sum(-1, keepdim=True) == 0)
+            version = version + closed
+            round_open = round_open & ~closed
+        else:
+            version = version + kfin
+
+        # energy (Eq. 10)
+        training = mode == MODE_TRAIN
+        p = torch.where(training, torch.where(has_app, pcor_g, self.PT),
+                        torch.where(has_app, papp_g, self.PI))
+        if self.overhead and policy.uses_online_queue:
+            p = torch.where(mode == MODE_WAIT, p + (self.PS - self.PI), p)
+        if self.dyn_active:     # a down device draws nothing
+            p = torch.where(up, p, 0.0)
+        energy = energy + p * t_d
+
+        # queues (Eqs. 15-16; departures extend Eq. 15 under churn)
+        Q = s.Q - served
+        if self.dyn_active:
+            Q = Q - departures
+        Q = Q.clamp_min(0.0) + arrivals
+        H = (s.H + gap_sum - kn["L_b"]).clamp_min(0.0)
+        return EngineState(
+            mode=mode, cooldown=cooldown, app=app, app_rem=app_rem,
+            train_rem=train_rem, corun=corun, idle_gap=idle_gap,
+            pulled_at=pulled_at, energy=energy, updates=updates, plan=plan,
+            version=version, in_flight=in_flight, round_open=round_open,
+            Q=Q, H=H, sum_Q=s.sum_Q + Q, sum_H=s.sum_H + H,
+            corun_updates=corun_updates, rng_key=rng_key, carry=carry,
+            agg_carry=agg_carry, dyn=dyn, events=events)
+
+    # ----------------------------------------------------------- the run
+    def _fresh_events(self, cap):
+        # one spare row at index cap takes the rows that do not fit
+        return PushBuffer(
+            torch.zeros((self.B, cap + 1, 6), dtype=_F, device=self.dev),
+            torch.zeros((self.B, 1), dtype=_I, device=self.dev))
+
+    def run(self) -> List[SimResult]:
+        B, T, chunk = self.B, self.T, self.chunk
+        initial = [s.state for s in self.sims]
+        state = _state_to_device(initial, self.dev)
+        cap = self.cap
+        if self.collect:
+            state = dataclasses.replace(state, events=self._fresh_events(cap))
+        logs = [PushLog() for _ in range(B)]
+        # (Q, H, energy sum) at every slot some row's trace_every samples;
+        # each row takes its own slots out of them below
+        idxs = [np.arange(0, T, s.cfg.trace_every) for s in self.sims]
+        sampled = np.zeros(T, dtype=bool)
+        for idx in idxs:
+            sampled[idx] = True
+        samples = []
+        retries = 0
+        t0 = 0
+        while t0 < T:
+            t1 = min(t0 + chunk, T)     # the tail chunk stops at T
+            prev = state
+            part = []
+            for t in range(t0, t1):
+                state = self.step(state, t)
+                if sampled[t]:
+                    part.append(torch.cat(
+                        [state.Q, state.H,
+                         state.energy.sum(-1, keepdim=True)], dim=1))
+            if self.collect:
+                counts = state.events.count[:, 0].tolist()
+                if max(counts) > cap:
+                    # re-run the chunk from its entry state, every row
+                    # with the larger buffer (counts are exact)
+                    cap = _next_pow2(max(counts))
+                    state = dataclasses.replace(
+                        prev, events=self._fresh_events(cap))
+                    retries += 1
+                    continue
+                if any(counts):
+                    rows = state.events.rows[:, :max(counts)].cpu().numpy()
+                    for b in range(B):
+                        logs[b].extend_rows(rows[b, :counts[b]])
+                state = dataclasses.replace(state, events=PushBuffer(
+                    state.events.rows, torch.zeros_like(state.events.count)))
+            if part:
+                samples.append(torch.stack(part, dim=1).cpu().numpy())
+            t0 = t1
+        trace = np.concatenate(samples, axis=1) if samples \
+            else np.zeros((B, 0, 3))
+        energy_rows = state.energy.sum(-1).cpu().numpy()
+        hosts = _state_to_host(dataclasses.replace(state, events=None),
+                               initial)
+        at = np.cumsum(sampled) - 1     # a sampled slot's column in trace
+        results = []
+        for b, sim in enumerate(self.sims):
+            host, idx = hosts[b], idxs[b]
+            cols = at[idx]
+            sim.state = host
+            sim._ran = True
+            sim.scan_info = SimpleNamespace(
+                chunk=chunk, capacity=cap, retries=retries, batch=B,
+                tune=self.tune)
+            updates_total = int(host.updates.sum())
+            results.append(SimResult(
+                energy_j=float(energy_rows[b]), updates=updates_total,
+                trace_t=idx, trace_energy=trace[b, cols, 2],
+                trace_Q=trace[b, cols, 0], trace_H=trace[b, cols, 1],
+                push_log=logs[b], accuracy=[],
+                mean_Q=host.sum_Q / T if T else 0.0,
+                mean_H=host.sum_H / T if T else 0.0,
+                corun_fraction=host.corun_updates / max(updates_total, 1),
+                drops=sim.dynamics.total_drops(host.dyn)))
+        return results
+
+
+# ======================================================================
+# Batched sweeps: one stacked run advances B same-shape scenarios
+# ======================================================================
+def sweep_bucket_key(sim):
+    """The bucket a sim shares a batched scan with, or None when it
+    cannot join one: real-ML hooks or a backend, ``engine="loop"``, an
+    auto-tuned chunk (``jax_chunk=0``, resolved per run), a policy or
+    dynamics without a scan hook or with ``supports_vmap`` cleared
+    (offline), or a push log under a rule without ``scan_weight``. Sims
+    with equal keys have equal shapes, hook behaviours (``jax_cache_key``),
+    statics and push-buffer capacity; everything else (V, L_b,
+    ``scan_operands``, arrivals, seeds) is a per-row operand."""
+    from .aggregation import aggregation_support
+    from .dynamics import dynamics_support
+    cfg = sim.cfg
+    policy, agg, dynamics = sim.policy, sim.agg, sim.dynamics
+    if sim.ml or sim.ml_backend is not None or cfg.engine == "loop":
+        return None
+    if cfg.jax_chunk == 0:
+        return None
+    if not (policy.supports_jax and policy.supports_vmap):
+        return None
+    if not (dynamics_support(dynamics)["jax"] and dynamics.supports_vmap):
+        return None
+    collect = cfg.collect_push_log
+    if collect and not (aggregation_support(agg)["jax"]
+                        and agg.supports_vmap):
+        return None
+    n = cfg.n_users
+    T = n_slots(cfg)
+    if not T:
+        return None
+    cap = _next_pow2(cfg.push_log_capacity or max(1024, 2 * n)) \
+        if collect else 0
+    return (n, min(cfg.jax_chunk, T), T, policy.jax_cache_key(),
+            cfg.include_scheduler_overhead, collect, cap,
+            tuple(policy.scan_statics(cfg)),
+            agg.jax_cache_key() if collect else None,
+            dynamics.jax_cache_key() if dynamics.active else None)
+
+
+def run_jax_sweep(sims) -> List[SimResult]:
+    """Run constructed FederatedSims that share a ``sweep_bucket_key``
+    (and a ``device``) as ONE stacked scan: their operands and states
+    stack on a leading config axis and every slot advances them all.
+    Each row decodes to the ``SimResult`` of its own per-point run
+    (discrete outputs bit for bit, energies to float-sum order). The push
+    buffer is ``(B, cap, 6)``; when any row overflows a chunk, the chunk
+    re-runs for the whole batch with the buffer doubled."""
+    sims = list(sims)
+    if not sims:
+        return []
+    keys = {sweep_bucket_key(s) for s in sims}
+    if None in keys or len(keys) != 1:
+        raise ValueError(
+            "run_jax_sweep needs sims sharing one sweep_bucket_key; got "
+            f"{len(keys)} distinct keys (None = not batchable). Use "
+            "core.scenario.run_sweep for bucketing and per-point runs.")
+    devices = {str(torch.device(s.device)) for s in sims}
+    if len(devices) != 1:
+        raise ValueError(f"run_jax_sweep needs one device, got {devices}")
+    return _Scan(sims, resolve_device(sims[0].device)).run()

@@ -35,7 +35,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / ".kernel_build" \
     / "cuda"
-SOURCES = ("flash_attention", "ssd_scan")
+SOURCES = ("flash_attention", "ssd_scan", "online_replay")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,8 +49,9 @@ def find_nvcc() -> str:
             return c
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
-        "/usr/local/cuda/bin): the port's CUDA kernels (K3, K4) are built "
-        "from src/repro_torch/csrc/ on first use and need the CUDA toolkit")
+        "/usr/local/cuda/bin): the port's CUDA kernels (K3, K4 and online's "
+        "replay) are built from src/repro_torch/csrc/ on first use and "
+        "need the CUDA toolkit")
 
 
 @functools.cache

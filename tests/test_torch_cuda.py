@@ -712,3 +712,68 @@ def test_topk_compress_on_cuda_matches_cpu(cuda_device, n, k):
     assert torch.equal(torch.sort(ours.indices.cpu()).values,
                        torch.sort(cpu.indices).values)
     assert torch.equal(topk_decompress(ours).cpu(), topk_decompress(cpu))
+
+
+def _replay_args(B, n, H, seed, device):
+    """Online's replay operands with ties on purpose (base == rhs and an
+    idle gap equal to a gap_vec entry for a third of the users)."""
+    rng = np.random.default_rng(seed)
+    powers = np.array([0.3, 0.55, 1.2, 2.4])
+    rhs = 4000.0 * rng.choice(powers, (B, n))
+    base = 4000.0 * rng.choice(powers, (B, n)) - 7.0
+    lag = (3 + np.arange(n + 1)).astype(float)
+    gap_vec = np.tile(0.01 * (1.0 - 0.9 ** lag) / 0.1, (B, 1))
+    gap_idle = rng.choice([0.05, 0.1, 0.5], (B, n))
+    tie = rng.random((B, n)) < 1 / 3
+    base = np.where(tie, rhs, base)
+    k = rng.integers(0, n + 1, (B, n))
+    gap_idle = np.where(tie, np.take_along_axis(gap_vec, k, 1), gap_idle)
+    t = lambda a, dt: torch.as_tensor(a).to(device, dt)
+    return (t(rng.random((B, n)) < 0.7, torch.bool),
+            t(base, torch.float64), t(rhs, torch.float64),
+            t(gap_idle, torch.float64), t(gap_vec, torch.float64),
+            t(np.full(B, H), torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", ((1, 0), (1, 1), (16, 1029), (1, 100_000)))
+@pytest.mark.parametrize("H", (0.0, 37.5))
+def test_online_replay_kernel_matches_plain_bitwise(cuda_device, B, n, H):
+    """Online's in-slot replay (CUDA C++) against its plain version on the
+    same CUDA tensors: start and gap_sum bit for bit."""
+    from repro_torch.kernels.online_replay import (online_replay,
+                                                   online_replay_cuda)
+    args = _replay_args(B, n, H, n + B, cuda_device)
+    before = online_replay_cuda.launches
+    ks, kg = online_replay(*args, kernel="cuda")
+    ps, pg = online_replay(*args, kernel="reference")
+    torch.cuda.synchronize()
+    assert online_replay_cuda.launches == before + 1
+    assert ks.is_cuda and torch.equal(ks, ps)
+    assert torch.equal(kg.view(torch.int64), pg.view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ("online", "eps_greedy"))
+def test_scan_engine_on_the_card_matches_numpy_engine(cuda_device, policy):
+    """A short scan run on the card (L_b = 2.0, so online's replay walks
+    with H > 0; a gap-aware push log; chunks of 100 slots) against the
+    numpy engine: schedule (t, user, lag, corun) equal, energy and mean_Q
+    at rel 1e-9, mean_H at rel 1e-6, gaps and weights at rtol 1e-9."""
+    from repro_torch.core import Scenario
+    from repro_torch.kernels.online_replay import online_replay_cuda
+    kw = dict(policy=policy, n_users=10, horizon_s=600, app_arrival_p=0.01,
+              seed=11, V=2000.0, L_b=2.0, aggregation="gap_aware")
+    online_replay_cuda.launches = 0
+    res = Scenario(engine="jax", jax_chunk=100, **kw).run(device="cuda")
+    ref = Scenario(engine="vectorized", **kw).run()
+    assert online_replay_cuda.launches == (600 if policy == "online" else 0)
+    key = lambda log: [(e["t"], e["user"], e["lag"], e["corun"]) for e in log]
+    assert key(res.push_log) == key(ref.push_log) and res.updates > 0
+    assert res.energy_j == pytest.approx(ref.energy_j, rel=1e-9)
+    assert res.mean_Q == pytest.approx(ref.mean_Q, rel=1e-9, abs=1e-12)
+    assert res.mean_H == pytest.approx(ref.mean_H, rel=1e-6, abs=1e-9)
+    for col in ("gap", "weight"):
+        np.testing.assert_allclose(res.push_log.field(col),
+                                   ref.push_log.field(col), rtol=1e-9,
+                                   atol=1e-15)

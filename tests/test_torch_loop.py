@@ -165,18 +165,19 @@ def test_loop_pushes_are_one_k1_call_each(monkeypatch):
 @pytest.mark.parametrize("engine", ("auto", "loop", "vectorized", "jax"))
 def test_engine_resolution(engine, with_hooks):
     """auto -> vectorized for hook-free trace runs, loop with per-user
-    hooks; vectorized refuses hooks; jax is still to port."""
+    hooks; vectorized and jax refuse hooks; jax (the device scan engine)
+    runs hook-free trace runs, on the CPU when asked for."""
     hooks = make_ml_hooks(2, device="cpu", n_train=64, n_test=32)[0] \
         if with_hooks else None
     cfg = SimConfig(policy="online", engine=engine, n_users=2,
                     horizon_s=30, ml_mode="real" if with_hooks else "trace")
-    sim = FederatedSim(cfg, ml_hooks=hooks)
-    if engine == "jax":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            sim.resolve_engine()
-    elif engine == "vectorized" and with_hooks:
+    sim = FederatedSim(cfg, ml_hooks=hooks, device="cpu")
+    if engine in ("vectorized", "jax") and with_hooks:
         with pytest.raises(ValueError, match="per-user ML hooks"):
             sim.resolve_engine()
+    elif engine == "jax":
+        assert sim.resolve_engine() == "jax"
+        assert sim.run().energy_j > 0
     else:
         want = "loop" if engine == "loop" or with_hooks else "vectorized"
         assert sim.resolve_engine() == want
