@@ -95,8 +95,16 @@ REPEAT_HORIZON_S = 600
 # stretch of it, the dependent-add chain that prices its bound, the engine
 # matrix's setting (tests/test_engine_matrix.py) and a 16-point V sweep
 REPLAY_N = (0, 1, 1029, 100_000)
+# the replay's edge cases: an unsorted gap_vec (the literal walk), 16 rows
+# of both paths, a row of undecided users, every user waiting at numpy's
+# 8,192-operand block edges
+REPLAY_EDGES = ("unsorted", "mixed16", "undecided", "w8191", "w8193",
+                "w16385")
 FLEET_N, FLEET_HORIZON_S, FLEET_PROFILE_S = 100_000, 300, 8
-DADD_CHAIN = 1_000_000
+DADD_CHAIN = WALK_CHAIN = 1_000_000
+# bytes the replay moves a user: waiting, base, rhs, gap_idle and gap_vec
+# read, start written
+REPLAY_BYTES_PER_USER = 1 + 8 * 4 + 1
 COVER = dict(n_users=10, horizon_s=1500, app_arrival_p=0.01, seed=11,
              V=2000.0, L_b=2.0)
 SWEEP_V = tuple(2.5 * (k + 1) for k in range(16))
@@ -188,6 +196,25 @@ def time_ms(fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Device ms a call of ``fn`` (launches only), by CUDA events around
+    ``iters`` calls queued behind a sleeping kernel, so that the host's
+    cost of each call (binding, allocation) never leaves the card idle
+    between them."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)      # ~0.1 s at the card's clock
     start.record()
     for _ in range(iters):
         fn()
@@ -997,58 +1024,166 @@ def replay_inputs(B, n, H, seed):
             cuda(gap_vec, torch.float64), cuda(Hs, torch.float64))
 
 
-def phase_replay(online_replay, online_replay_cuda, dadd_chain_cuda):
+def replay_edge_inputs(kind):
+    """The replay's edge rows (REPLAY_EDGES) on the card: ``unsorted`` a
+    row whose gap_vec descends (the literal walk); ``mixed16`` 16 rows,
+    row 0 descending, row 1 ascending, the rest either at random;
+    ``undecided`` base == rhs and g_i = gap_vec[k_i] for k_i < w_i on a
+    strictly increasing gap_vec, every user waiting, so that all but the
+    first are undecided; ``wN`` every one of N users waiting."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "undecided":
+        n = 3000
+        gv = 1e-3 * (3.0 + np.arange(n + 1))[None]
+        k = rng.integers(0, np.maximum(np.arange(n), 1))
+        r = np.full((1, n), 4000.0)
+        args = (np.ones((1, n), bool), r.copy(), r, gv[:, k], gv,
+                np.full(1, 1.0))
+    else:
+        B, n = ((1, 2000) if kind == "unsorted" else (16, 1500)
+                if kind == "mixed16" else (1, int(kind[1:])))
+        w, b, r, gi, gv, H = (t.cpu().numpy() for t in
+                              replay_inputs(B, n, 37.5, seed=n + B))
+        if kind[0] == "w":
+            w = np.ones_like(w)
+        else:
+            gv = np.tile(1e-3 * (3.0 + np.arange(n + 1)), (B, 1))
+            k = rng.integers(0, n + 1, (B, n))
+            gi = np.where(b == r, np.take_along_axis(gv, k, 1), gi)
+            flip = np.ones(B, bool) if kind == "unsorted" else \
+                rng.random(B) < 0.5
+            flip[:2] = (True, False)[:B]
+            gv = np.where(flip[:, None], gv[:, ::-1], gv)
+        args = (w, b, r, gi, gv, H)
+    dt = (torch.bool,) + (torch.float64,) * 5
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to("cuda", d)
+                 for a, d in zip(args, dt))
+
+
+def sum_depth(W):
+    """Dependent f64 adds on the longest chain of numpy's sum of W
+    operands (blocks of 8,192 added in order to 0.0, each block
+    pairwise: leaves of <= 128 by eight strided accumulators, or serially
+    from 0.0 below 8)."""
+    def pairwise(n):
+        if n < 8:
+            return n
+        if n <= 128:
+            return max(n // 8 - 1, 0) + 3 + n % 8
+        n2 = n // 2 - (n // 2) % 8
+        return max(pairwise(n2), pairwise(n - n2)) + 1
+    depth = 0
+    for lo in range(0, W, 8192):
+        depth = max(depth, pairwise(min(8192, W - lo))) + 1
+    return depth
+
+
+def phase_replay(replay):
     """(a) online's replay kernel against its plain version on the same
     CUDA tensors, bit for bit (start and gap_sum), at n in REPLAY_N, B in
-    (1, 16), H = 0 and H > 0; ms a launch by CUDA events; the plain
-    version's time; the bound: a chain of one dependent f64 add for each
-    waiting user of the row with the most of them (a user who is not
-    waiting adds nothing and leaves j as it is), at the latency of one
-    dependent f64 add on this card (``dadd_chain_cuda``: DADD_CHAIN adds
-    in one thread, timed by CUDA events, its cycles by clock64). Returns
-    (ms, plain ms, bound ms, checked cases, max |gap_sum - plain|) at the
-    main path's shape (B = 1, n = FLEET_N, H > 0)."""
-    cases, max_err = 0, 0.0
+    (1, 16), H = 0 and H > 0, and at REPLAY_EDGES; each launch's per-row
+    record (path, waiting, always, undecided) against the host's
+    classification of the same inputs (``online_replay_rows_ref``), and
+    the per-device path counters.
+    Then at the main path's shape (n = FLEET_N, H > 0, B = 1 and 16): ms
+    a launch (``device_ms``), the plain version's ms, and the bound, the
+    larger of the bytes (REPLAY_BYTES_PER_USER a user at HBM_BPS) and the
+    serial chain that remains: the undecided users of the fullest row,
+    one dependent walk step each (``walk_chain_cuda``: WALK_CHAIN steps in
+    one thread, by CUDA events), then ``sum_depth`` dependent f64 adds
+    (``dadd_chain_cuda``). The earlier kernel's bound (one dependent f64
+    add a waiting user) is printed beside it, and the us each phase of
+    one traced launch took (``phase_ns``). Returns a dict for the kernels
+    record and the counts of the timed row."""
+    online_replay, online_replay_cuda = (replay.online_replay,
+                                         replay.online_replay_cuda)
+    cases, max_err, literal_rows = 0, 0.0, 0
+
+    def check(args, label):
+        nonlocal cases, max_err, literal_rows
+        replay.reset_path_rows()
+        ks, kg = online_replay(*args, kernel="cuda")
+        rows = online_replay_cuda.last_rows.cpu().numpy()
+        ps, pg = online_replay(*args, kernel="reference")
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((kg - pg).abs().max())
+                      if kg.numel() else 0.0)
+        assert torch.equal(ks, ps), (label, "start")
+        assert torch.equal(kg.view(torch.int64), pg.view(torch.int64)), \
+            (label, "sum")
+        want = replay.online_replay_rows_ref(*args).numpy()
+        assert np.array_equal(rows, want), (label, rows, want)
+        lit = int((want[:, 0] == 0).sum())
+        assert replay.path_rows() == (len(want) - lit, lit), label
+        literal_rows += lit
+        cases += 1
+        return want
+
     for n in REPLAY_N:
         for B in (1, 16):
             for H in (0.0, 37.5):
-                args = replay_inputs(B, n, H, seed=n + B)
-                ks, kg = online_replay(*args, kernel="cuda")
-                ps, pg = online_replay(*args, kernel="reference")
-                torch.cuda.synchronize()
-                max_err = max(max_err, float((kg - pg).abs().max()))
-                assert torch.equal(ks, ps), (n, B, H, "start")
-                assert torch.equal(kg.view(torch.int64),
-                                   pg.view(torch.int64)), (n, B, H, "sum")
-                cases += 1
+                check(replay_inputs(B, n, H, seed=n + B), (n, B, H))
+    for kind in REPLAY_EDGES:
+        want = check(replay_edge_inputs(kind), kind)
+        if kind == "unsorted":
+            assert want[0, 0] == 0, kind
+        if kind == "mixed16":
+            assert (want[0, 0], want[1, 0]) == (0, 1), kind
+        if kind == "undecided":
+            assert want[0, 3] == want[0, 1] - 1, kind
     print(f"replay: kernel equals its plain version bit for bit (start, "
           f"gap_sum) in {cases} cases: n in {REPLAY_N}, B in (1, 16), H = 0 "
-          f"and 37.5, with ties", flush=True)
-    times = {}
+          f"and 37.5, with ties, and {REPLAY_EDGES}; every row's path and "
+          f"counts as the host classifies them ({literal_rows} rows took "
+          f"the literal walk)", flush=True)
+    chain = replay.dadd_chain_cuda(DADD_CHAIN)
+    walk = replay.walk_chain_cuda(WALK_CHAIN)
+    torch.cuda.synchronize()
+    dadd_ms = time_ms(lambda: replay.dadd_chain_cuda(DADD_CHAIN), 5)
+    walk_ms = time_ms(lambda: replay.walk_chain_cuda(WALK_CHAIN), 5)
+    dadd_ns, walk_ns = dadd_ms * 1e6 / DADD_CHAIN, walk_ms * 1e6 / WALK_CHAIN
+    print(f"replay yardsticks: one dependent DADD {dadd_ns:.3f} ns "
+          f"({float(chain[1]) / DADD_CHAIN:.2f} cycles), one walk step "
+          f"{walk_ns:.3f} ns ({int(walk[1]) / WALK_CHAIN:.2f} cycles), each "
+          f"over a chain of {DADD_CHAIN} in one thread ({dadd_ms:.6f} / "
+          f"{walk_ms:.6f} ms)", flush=True)
+    out = {}
     for B in (1, 16):
         args = replay_inputs(B, FLEET_N, 37.5, seed=7)
-        ms = time_ms(lambda: online_replay_cuda(*args), 20)
+        ms = device_ms(lambda: online_replay_cuda(*args), 50)
+        rows = replay.online_replay_rows_ref(*args).numpy()
+        assert np.array_equal(online_replay_cuda.last_rows.cpu().numpy(),
+                              rows)
         t0 = time.perf_counter()
         online_replay(*args, kernel="reference")
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
-        steps = int(args[0].sum(-1).max())  # waiting users, fullest row
-        times[B] = (ms, plain, steps)
-    chain = dadd_chain_cuda(DADD_CHAIN)
-    torch.cuda.synchronize()
-    chain_ms = time_ms(lambda: dadd_chain_cuda(DADD_CHAIN), 5)
-    cycles = float(chain[1]) / DADD_CHAIN
-    step_ns = chain_ms * 1e6 / DADD_CHAIN
-    bounds = {}
-    for B, (ms, plain, steps) in times.items():
-        bounds[B] = steps * step_ns * 1e-6
+        phases = replay.phase_ns(*args)
+        W, U = int(rows[:, 1].max()), int(rows[:, 3].max())
+        bytes_ms = (REPLAY_BYTES_PER_USER * FLEET_N + 16) * B / HBM_BPS * 1e3
+        depth = sum_depth(W)
+        ops_ms = (U * walk_ns + depth * dadd_ns) * 1e-6
+        old_ms = W * dadd_ns * 1e-6
+        bound = max(bytes_ms, ops_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        A = int(rows[0, 2])
         print(f"replay at B={B}, n={FLEET_N}, H > 0: kernel {ms:.6f} ms a "
-              f"launch, plain {plain:.3f} ms, bound {bounds[B]:.6f} ms "
-              f"({bounds[B] / ms:.1%}): {steps} waiting users (the fullest "
-              f"row), one dependent f64 add each at {step_ns:.3f} ns "
-              f"({cycles:.2f} cycles), the latency of one dependent DADD "
-              f"measured over {DADD_CHAIN} ({chain_ms:.6f} ms)", flush=True)
-    return times[1][0], times[1][1], bounds[1], cases, max_err
+              f"launch, plain {plain:.3f} ms; bound {bound:.6f} ms by {by} "
+              f"({bound / ms:.1%}): {U} undecided users (fullest row) x "
+              f"{walk_ns:.3f} ns + {depth} dependent adds of the gap sum x "
+              f"{dadd_ns:.3f} ns = {ops_ms:.6f} ms, bytes "
+              f"{REPLAY_BYTES_PER_USER} a user = {bytes_ms:.6f} ms; the "
+              f"serial-DADD bound of the earlier kernel ({W} waiting users "
+              f"x one dependent add) {old_ms:.6f} ms; row 0: {W} waiting, "
+              f"{A} always, {W - A - int(rows[0, 3])} never, "
+              f"{int(rows[0, 3])} undecided; one traced launch, us a "
+              f"phase: " + ", ".join(f"{k} {v / 1e3:.1f}"
+                                     for k, v in phases.items()), flush=True)
+        out[B] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                      serial_dadd_ms=old_ms, waiting=W, always=A,
+                      undecided=U, phase_us={k: v / 1e3
+                                             for k, v in phases.items()})
+    return dict(out[1], cases=cases, max_abs_err=max_err, b16=out[16])
 
 
 def check_scan(ref, res, label):
@@ -1102,14 +1237,18 @@ def profile_kernels(build):
     return sum(e.count for e in rows), busy, wall, prof_wall, replay
 
 
-def phase_fleet(Scenario, online_replay_cuda):
+def phase_fleet(Scenario, replay):
     """(b) online at FLEET_N users for FLEET_HORIZON_S, push log on,
     jax_chunk=0 (auto-tuned), once at the defaults and once at L_b = 2.0
-    (H > 0: the replay binds), each held to the numpy engine on the host
-    (``check_scan``). Prints simulated slots/s and user-slots/s, peak
-    memory, the tuned chunk, capacity and budget, overflow retries, and
-    kernels a slot (a profiled FLEET_PROFILE_S-slot run). Returns the
+    (H > 0: the replay's order matters), each held to the numpy engine on
+    the host (``check_scan``); every slot's replay took the threshold path
+    (the kernel's per-device path counters). Prints simulated slots/s and
+    user-slots/s, peak memory, the tuned chunk, capacity and budget,
+    overflow retries, and two profiles at L_b = 2.0: the first
+    FLEET_PROFILE_S slots and the whole FLEET_HORIZON_S (kernels a slot,
+    device busy, idle share, the replay's device seconds). Returns the
     replay launches of the L_b = 2.0 run (one a slot)."""
+    online_replay_cuda = replay.online_replay_cuda
     launches = None
     for over in ({}, {"L_b": 2.0}):
         kw = dict(policy="online", n_users=FLEET_N,
@@ -1118,11 +1257,13 @@ def phase_fleet(Scenario, online_replay_cuda):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         online_replay_cuda.launches = 0
+        replay.reset_path_rows()
         t0 = time.perf_counter()
         res = sim.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = online_replay_cuda.launches
+        paths = replay.path_rows()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         t0 = time.perf_counter()
         ref = Scenario(engine="vectorized", **kw).run()
@@ -1132,6 +1273,7 @@ def phase_fleet(Scenario, online_replay_cuda):
         T = FLEET_HORIZON_S
         info = sim.scan_info
         assert launches == T, (launches, T)
+        assert paths == (T, 0), (label, "rows by path", paths)
         if over:
             assert res.mean_H > 0, "the L_b=2.0 run never had H > 0"
         print(f"scan: {label}, {T} slots: wall {wall!r} s, "
@@ -1141,20 +1283,24 @@ def phase_fleet(Scenario, online_replay_cuda):
               f"{info.tune.push_capacity}), budget {info.tune.device_budget} "
               f"B, modeled {info.tune.est_bytes_per_device} B, "
               f"{info.retries} overflow retries; {res.updates} updates, "
-              f"mean_H {res.mean_H!r}, energy {res.energy_j!r} J; replay "
-              f"launches {launches}; the numpy engine on the host took "
+              f"mean_H {res.mean_H!r} (the numpy engine's "
+              f"{ref.mean_H!r}), energy {res.energy_j!r} J; replay "
+              f"launches {launches}, rows by path (threshold, literal) "
+              f"{paths}; the numpy engine on the host took "
               f"{ref_wall!r} s ({T / ref_wall!r} slots/s), same schedule "
               f"{schedule_digest(res.push_log)[:16]}", flush=True)
-    prof = Scenario(policy="online", engine="jax", n_users=FLEET_N,
-                    horizon_s=FLEET_PROFILE_S, L_b=2.0, seed=0)
-    n_k, busy, wall, prof_wall, replay_s = profile_kernels(
-        lambda: prof.build(device="cuda"))
-    print(f"scan: profile of a {FLEET_PROFILE_S}-slot online run at "
-          f"{FLEET_N} users, L_b=2.0: {n_k} device kernels "
-          f"({n_k / FLEET_PROFILE_S!r} a slot), wall {wall!r} s "
-          f"(unprofiled; {prof_wall!r} s profiled), device busy {busy!r} s "
-          f"(idle share {1.0 - busy / wall!r} of the unprofiled wall), of "
-          f"which the replay {replay_s!r} s", flush=True)
+    for slots in (FLEET_PROFILE_S, FLEET_HORIZON_S):
+        prof = Scenario(policy="online", engine="jax", n_users=FLEET_N,
+                        horizon_s=slots, L_b=2.0, seed=0)
+        n_k, busy, wall, prof_wall, replay_s = profile_kernels(
+            lambda: prof.build(device="cuda"))
+        print(f"scan: profile of a {slots}-slot online run at {FLEET_N} "
+              f"users, L_b=2.0: {n_k} device kernels ({n_k / slots!r} a "
+              f"slot), wall {wall!r} s (unprofiled; {prof_wall!r} s "
+              f"profiled), device busy {busy!r} s (idle share "
+              f"{1.0 - busy / wall!r} of the unprofiled wall), of which the "
+              f"replay {replay_s!r} s ({replay_s / busy:.1%} of busy)",
+              flush=True)
     return launches
 
 
@@ -1233,13 +1379,11 @@ def phase_scan(Scenario, run_sweep, replay):
     (c) coverage, (d) a batched sweep. Returns the replay's kernel-record
     numbers."""
     t = time.perf_counter()
-    ms, plain_ms, bound, cases, max_err = phase_replay(
-        replay.online_replay, replay.online_replay_cuda,
-        replay.dadd_chain_cuda)
+    rec = phase_replay(replay)
     print(f"scan phase (a) replay: {time.perf_counter() - t:.1f} s",
           flush=True)
     t = time.perf_counter()
-    launches = phase_fleet(Scenario, replay.online_replay_cuda)
+    launches = phase_fleet(Scenario, replay)
     print(f"scan phase (b) fleet: {time.perf_counter() - t:.1f} s",
           flush=True)
     t = time.perf_counter()
@@ -1250,8 +1394,7 @@ def phase_scan(Scenario, run_sweep, replay):
     phase_sweep(Scenario, run_sweep)
     print(f"scan phase (d) sweep: {time.perf_counter() - t:.1f} s",
           flush=True)
-    return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                cases=cases, max_abs_err=max_err)
+    return dict(rec, launches=launches)
 
 
 def profile_main(Scenario, horizon_s):
@@ -2408,7 +2551,7 @@ def main() -> int:
         "ms": replay["ms"],
         "plain_ms": replay["plain_ms"],
         "bound_ms": replay["bound_ms"],
-        "bound_by": "operations",
+        "bound_by": replay["bound_by"],
         "library_ms": None,
     }, {
         "name": "K4 flash_attention (causal GQA online-softmax attention)",

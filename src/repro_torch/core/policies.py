@@ -410,8 +410,10 @@ class OnlinePolicy(Policy):
         gap_idle = sv.idle_gap + sv.epsilon
         lag = sv.in_flight + torch.arange(sv.n + 1, device=sv.device)
         gap_vec = _gradient_gap_t(vn, lag, sv.eta, sv.beta)
-        # the users' sequential lag coupling, walked on the device (one
-        # launch a slot; with H == 0 the same walk is the elementwise rule)
+        # the users' sequential lag coupling, replayed on the device (one
+        # launch a slot; with H == 0 the same function is the elementwise
+        # rule); gap_sum adds the waiting users' gaps in numpy's order, as
+        # the numpy engine's decide_batch does
         start, gap_sum = online_replay(sv.waiting, base, rhs, gap_idle,
                                        gap_vec, sv.H[:, 0])
         sv.idle_gap = torch.where(sv.waiting & ~start,

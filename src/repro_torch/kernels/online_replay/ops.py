@@ -12,8 +12,10 @@ from .ref import online_replay_ref
 def online_replay(waiting, base, rhs, gap_idle, gap_vec, H, *,
                   kernel: str = "auto"):
     """One slot of Alg. 2's decisions for every config row, users in
-    index order (see ``csrc/online_replay.cu``). Returns (start (B, n)
-    bool, gap_sum (B,) f64)."""
+    index order, and the gap sum of the waiting users' operands in numpy's
+    summation order, as the numpy engine's ``decide_batch`` sums them (see
+    ``csrc/online_replay.cu`` and ``ref.np_sum_order``). Returns (start
+    (B, n) bool, gap_sum (B,) f64)."""
     if mode.use_kernel(kernel, base, "cuda"):
         return online_replay_cuda(waiting, base, rhs, gap_idle, gap_vec, H)
     check_inputs(waiting, base, rhs, gap_idle, gap_vec, H)

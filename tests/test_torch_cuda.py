@@ -746,11 +746,83 @@ def test_online_replay_kernel_matches_plain_bitwise(cuda_device, B, n, H):
     args = _replay_args(B, n, H, n + B, cuda_device)
     before = online_replay_cuda.launches
     ks, kg = online_replay(*args, kernel="cuda")
+    rows = online_replay_cuda.last_rows.cpu().numpy()
     ps, pg = online_replay(*args, kernel="reference")
     torch.cuda.synchronize()
     assert online_replay_cuda.launches == before + 1
     assert ks.is_cuda and torch.equal(ks, ps)
     assert torch.equal(kg.view(torch.int64), pg.view(torch.int64))
+    np.testing.assert_array_equal(rows, _replay_rows(args))
+
+
+def _replay_rows(args):
+    from repro_torch.kernels.online_replay import online_replay_rows_ref
+    return online_replay_rows_ref(*args).numpy()
+
+
+def _replay_edge_args(kind, device):
+    """Rows that take each path and sit on the kernel's edges: an unsorted
+    gap_vec (the literal walk); 16 rows, sorted and unsorted mixed; a row
+    whose waiting users are all undecided but the first; every user
+    waiting at 8,191, 8,193 and 16,385 (numpy's 8,192-operand blocks)."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "undecided":
+        n = 3000
+        r = np.full((1, n), 4000.0)
+        gv = 1e-3 * (3.0 + np.arange(n + 1))[None]
+        k = rng.integers(0, np.maximum(np.arange(n), 1))[None]
+        args = (np.ones((1, n), bool), r.copy(), r, gv[:, k[0]], gv,
+                np.full(1, 1.0))
+    else:
+        B, n = {"unsorted": (1, 2000), "mixed16": (16, 1500)}[kind] \
+            if kind[0] != "w" else (1, int(kind[1:]))
+        w, b, r, gi, gv, H = (t.cpu().numpy() for t in
+                              _replay_args(B, n, 37.5, n + B, "cpu"))
+        if kind[0] == "w":
+            w = np.ones_like(w)
+        else:   # strictly increasing, so that reversed it descends early
+            gv = np.tile(1e-3 * (3.0 + np.arange(n + 1)), (B, 1))
+            base_tie = b == r
+            k = rng.integers(0, n + 1, (B, n))
+            gi = np.where(base_tie, np.take_along_axis(gv, k, 1), gi)
+        flip = np.ones(B, bool) if kind == "unsorted" else (
+            rng.random(B) < 0.5 if kind == "mixed16" else np.zeros(B, bool))
+        if kind == "mixed16":
+            flip[:2] = (True, False)
+        gv = np.where(flip[:, None], gv[:, ::-1], gv)
+        args = (w, b, r, gi, gv, H)
+    dt = (torch.bool,) + (torch.float64,) * 5
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device, d)
+                 for a, d in zip(args, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("unsorted", "mixed16", "undecided",
+                                  "w8191", "w8193", "w16385"))
+def test_online_replay_kernel_paths_and_edges(cuda_device, kind):
+    """Both paths of the replay kernel against its plain version, start
+    and gap_sum bit for bit; the path each row took and its counts as the
+    inputs give them; the per-device path counters."""
+    from repro_torch.kernels.online_replay import (
+        online_replay, online_replay_cuda, path_rows, reset_path_rows)
+    args = _replay_edge_args(kind, cuda_device)
+    reset_path_rows(cuda_device)
+    ks, kg = online_replay(*args, kernel="cuda")
+    rows = online_replay_cuda.last_rows.cpu().numpy()
+    ps, pg = online_replay(*args, kernel="reference")
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps)
+    assert torch.equal(kg.view(torch.int64), pg.view(torch.int64))
+    want = _replay_rows(args)
+    np.testing.assert_array_equal(rows, want)
+    literal = int((want[:, 0] == 0).sum())
+    assert path_rows(cuda_device) == (len(want) - literal, literal)
+    if kind == "unsorted":
+        assert literal == 1
+    if kind == "mixed16":
+        assert (want[0, 0], want[1, 0]) == (0, 1)
+    if kind == "undecided":
+        assert want[0, 3] == want[0, 1] - 1
 
 
 @pytest.mark.cuda

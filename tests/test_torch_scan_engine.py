@@ -315,13 +315,12 @@ def test_replay_plain_equals_decide_batch(seed, H):
         base[w], rhs[w], gap_idle[w], gap_vec[:k + 1], k)
     np.testing.assert_array_equal(start[0].numpy()[w], seq.schedule)
     assert not start[0].numpy()[~waiting].any()
-    total = 0.0
-    for g in seq.gaps:          # the replay sums in user order
-        total += g
-    assert float(gsum[0]) == total
+    # the replay sums the waiting users' gaps in numpy's order: exactly
+    # np.sum of the same operands, and so the numpy engine's gap_sum
+    assert float(gsum[0]) == float(np.sum(seq.gaps)) == seq.gap_sum
     batch = sched.decide_batch(p_s[w], p_i[w], ig[w], lag0, vn)
     np.testing.assert_array_equal(start[0].numpy()[w], batch.schedule)
-    assert float(gsum[0]) == pytest.approx(batch.gap_sum, rel=1e-12)
+    assert float(gsum[0]) == batch.gap_sum
     jb = JSched(sched.V, 1000.0, 0.01, 0.9, 0.05, 1.0)
     jb.Q, jb.H = sched.Q, H
     ref = jb.decide_batch(p_s[w], p_i[w], ig[w], lag0, vn)
@@ -340,6 +339,159 @@ def test_replay_rejects_bad_shapes_and_cuda_mode_on_cpu():
                       ok[5])
     with pytest.raises(ValueError, match="CUDA"):
         online_replay(*ok, kernel="cuda")
+
+
+def _plain(w, b, r, gi, gv, H):
+    """The plain replay of one row (numpy in, numpy out)."""
+    t = lambda a: torch.as_tensor(np.asarray(a))[None]
+    start, gsum = online_replay(t(w), t(b), t(r), t(gi), t(gv),
+                                torch.tensor([float(H)], dtype=torch.float64),
+                                kernel="reference")
+    return start[0].numpy(), float(gsum[0])
+
+
+def _walk_operands(w, b, r, gi, gv, H):
+    """The literal walk's operands of the waiting users, in user order."""
+    j, ops = 0, []
+    for i in np.nonzero(w)[0].tolist():
+        if b[i] + H * gv[j] <= r[i] + H * gi[i]:
+            ops.append(gv[j])
+            j += 1
+        else:
+            ops.append(gi[i])
+    return np.array(ops, dtype=float)
+
+
+@pytest.mark.parametrize("waiting", (0, 1, 7, 8, 127, 128, 129, 8191, 8192,
+                                     8193, 16385, 20000))
+def test_replay_gap_sum_is_numpy_sum_order(waiting):
+    """The plain gap_sum equals np.sum of the waiting users' operands bit
+    for bit at numpy's leaf (8, 128) and buffer (8,192) edges; operands
+    of mixed magnitudes, so that the order of the additions shows."""
+    from repro_torch.kernels.online_replay import np_sum_order
+    rng = np.random.default_rng(waiting)
+    n = waiting + waiting // 3
+    w = np.zeros(n, bool)
+    w[rng.permutation(n)[:waiting]] = True
+    gi = rng.random(n) * 10.0 ** rng.integers(-6, 3, n)
+    gv = np.sort(rng.random(n + 1) * 10.0 ** rng.integers(-6, 3, n + 1))
+    r = 4000.0 * rng.choice([0.3, 1.2, 2.4], n)
+    b = 4000.0 * rng.choice([0.3, 1.2, 2.4], n) - 7.0
+    start, gsum = _plain(w, b, r, gi, gv, 0.5)
+    ops = _walk_operands(w, b, r, gi, gv, 0.5)
+    assert len(ops) == waiting
+    assert waiting < 128 or 0 < start.sum() < waiting   # both kinds
+    assert np.float64(gsum).view(np.int64) == np.sum(ops).view(np.int64)
+    assert np_sum_order(ops.tolist()) == float(np.sum(ops))
+    if waiting >= 8193:   # a serial sum lands elsewhere: the order shows
+        serial = 0.0
+        for x in ops.tolist():
+            serial += x
+        assert serial != gsum
+
+
+def _threshold_model(w, b, r, gi, gv, H):
+    """Phases (a)-(e) of ``csrc/online_replay.cu`` for one row, in numpy,
+    as the kernel forms them: the row's check; w_i; K_i by bisection in
+    [-1, w_i] (w_i and 0 probed first); the classes; A_i and u_i; the
+    integer walk over the undecided users with T_i = K_i - A_i; the
+    decisions and operands. None where the check sends the row to the
+    literal walk. Held here to the plain version; not used by the
+    package."""
+    n, W = len(b), int(w.sum())
+    with np.errstate(invalid="ignore", over="ignore"):
+        ok = (np.isfinite(H) and H >= 0.0
+              and (W <= 1 or bool(np.all(gv[:W - 1] <= gv[1:W])))
+              and (W == 0 or (np.isfinite(H * gv[0])
+                              and np.isfinite(H * gv[W - 1]))))
+    if not ok:
+        return None
+    wi = np.cumsum(w) - w                                     # (a)
+    c = r + H * gi
+    holds = lambda j: b + H * gv[j] <= c                      # (b)
+    top, bot = holds(wi), holds(np.zeros(n, np.int64))
+    always, und = w & top, w & ~top & bot
+    lo, hi = np.zeros(n, np.int64), np.where(und, wi, 0)
+    while np.any(hi - lo > 1):
+        go = hi - lo > 1
+        mid = (lo + hi) >> 1
+        h = holds(np.where(go, mid, 0))
+        lo, hi = np.where(go & h, mid, lo), np.where(go & ~h, mid, hi)
+    K = np.where(always, wi, np.where(und, lo, -1))
+    A, u = np.cumsum(always) - always, np.cumsum(und) - und   # (c)
+    T = (K - A)[und]
+    M, m = np.zeros(len(T) + 1, np.int64), 0                  # (d)
+    for k, t in enumerate(T.tolist()):
+        M[k] = m
+        m += m <= t
+    M[len(T)] = m
+    d = always | (und & (M[np.minimum(u + 1, len(T))] > M[u]))  # (e)
+    j = np.where(d, A + M[u], 0)
+    ops = np.where(d, gv[j], gi)[w]
+    return d, ops, int(always.sum()), int(und.sum()), K, A
+
+
+def _model_case(rng, n, H, kind):
+    """One row: random operands with ties and one-ulp neighbours (as
+    ``_replay_case``), or every waiting user undecided."""
+    if kind == "undecided":
+        # base == rhs and g_i = gap_vec[k] for k < w_i on a strictly
+        # increasing gap_vec: the comparison holds for j <= k only
+        w = np.ones(n, bool)
+        r = np.full(n, 4000.0)
+        gv = 1e-3 * (3.0 + np.arange(n + 1))
+        wi = np.arange(n)
+        k = rng.integers(0, np.maximum(wi, 1))
+        return w, r.copy(), r, gv[k], gv, H
+    sched, w, b, r, ig, gv, *_ = _replay_case(rng, n, H)
+    ulp = rng.random(n) < 0.1
+    b = np.where(ulp, np.nextafter(r, rng.choice([-np.inf, np.inf], n)), b)
+    gi = ig + sched.epsilon
+    if kind == "unsorted":
+        gv = gv[::-1].copy()
+    elif kind == "nan_b":
+        b[rng.integers(0, n)] = np.nan
+    return w, b, r, gi, gv, H
+
+
+@pytest.mark.parametrize("kind,H", (("random", 0.7), ("random", 3000.0),
+                                    ("random", 0.0), ("unsorted", 3000.0),
+                                    ("nan_b", 3000.0), ("undecided", 1.0),
+                                    ("random", float("nan"))))
+@pytest.mark.parametrize("seed", range(4))
+def test_replay_threshold_model_equals_plain_walk(kind, H, seed):
+    """The numpy model of the kernel's phases (a)-(e) gives the plain
+    walk's decisions and operands (so np.sum of them is the plain
+    gap_sum), with the classes that probing w_i and 0 gives; an unsorted
+    gap_vec or a NaN H fails the check (the literal walk)."""
+    rng = np.random.default_rng(100 * seed + len(kind))
+    n = int(rng.integers(200, 700))
+    w, b, r, gi, gv, H = _model_case(rng, n, H, kind)
+    start, gsum = _plain(w, b, r, gi, gv, H)
+    got = _threshold_model(w, b, r, gi, gv, H)
+    if kind == "unsorted" or np.isnan(H):
+        assert got is None
+        return
+    d, ops, n_always, n_und, K, A = got
+    np.testing.assert_array_equal(d, start)
+    np.testing.assert_array_equal(ops, _walk_operands(w, b, r, gi, gv, H))
+    assert float(np.sum(ops)) == gsum
+    wi = np.cumsum(w) - w
+    c = r + H * gi
+    assert n_always == int((w & (b + H * gv[wi] <= c)).sum())
+    assert n_und == int((w & ~(b + H * gv[wi] <= c)
+                         & (b + H * gv[0] <= c)).sum())
+    if H == 0.0:
+        assert n_und == 0        # the gap terms add 0: no order
+    if kind == "undecided":
+        assert n_und == int(w.sum()) - 1   # all but the first waiting user
+    if kind in ("random", "undecided") and H > 0:
+        assert n_und > 0 and n_always > 0 or kind == "undecided"
+        # T_i = K_i - A_i: the walk compares m with the lag K_i less the
+        # always-users before i, and the cap at w_i: K_i < w_i for every
+        # undecided user
+        assert np.all(K[w & (K >= 0) & (K < wi)] < wi[w & (K >= 0) & (K < wi)])
+        assert np.any((A > 0) & (K >= 0) & (K < wi) & w)
 
 
 # ---------------------------------------------------------------------------
