@@ -41,10 +41,21 @@ for bit); then serves Qwen3-0.6B (attention_impl="flash": K4
 on every layer's prefill) and Mamba2-370m (K3 on every layer's prefill)
 at full width through ``launch.serve.BatchedServer``, compares each
 kernel route's prefill logits with the plain route's, and profiles one
-prefill and a few decode steps.
+prefill and a few decode steps; then the LM zoo's newer
+configurations: K4 at their three new shapes against its plain version,
+granite-moe-1b-a400m (the MoE family: sorted dispatch at prefill, the
+dense combine at decode) served at full width with K4 and held to the
+einsum route (in bf16 at the Qwen3 phase's bound, in f32 token for
+token), qwen2.5-3b (with its chunked-attention prefill held to the einsum
+route) and phi4-mini-3.8b at full width, and internlm2-20b and
+qwen3-moe-30b-a3b at their published widths with their depth cut to fit
+the card. The scan phase ends with the padded user axis
+(``SimConfig.n_devices``): the fleet run with ``n_devices=1`` and padded
+past n, each equal to the plain run bit for bit.
 
     python3 chip_smoke.py
     python3 chip_smoke.py scan      # the scan-engine phase alone
+    python3 chip_smoke.py zoo       # K4's newer shapes and the zoo phase
 
 Needs a CUDA device and the CUDA toolkit (exits non-zero without a
 device) and nothing but this repository's ``src/``. Every phase raises on
@@ -152,6 +163,22 @@ FIRST_FORM_MS = {"K4": 0.492898, "K3": 0.713222}
 FIRST_FORM_PREFILL_MS = {"qwen3-0.6b": 48.58, "mamba2-370m": 102.34}
 # serving: 8 prompts of 512 tokens, 32 new tokens each, on the card
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+# the LM zoo's newer configurations at the serving prefill (batch 8 x
+# 512 tokens, bf16), K4's shape (B, H, KV, S, d) for each: granite's head
+# dim 64 (16 heads over 8 KV heads), qwen2.5-3b's GQA ratio 8, phi4-mini's
+# ratio 3
+K4_ZOO = {"granite-moe-1b-a400m": (8, 16, 8, 512, 64),
+          "qwen2.5-3b": (8, 16, 2, 512, 128),
+          "phi4-mini-3.8b": (8, 24, 8, 512, 128)}
+# the two configurations whose f32 weights exceed one card at full depth
+# (79.4 and 122.1 GB): layers kept, at their published widths
+ZOO_CUT = {"internlm2-20b": 24, "qwen3-moe-30b-a3b": 16}
+# chunked attention's q-block for qwen2.5-3b's chunked prefill: two blocks
+# of 192 rows and a tail of 128 over 512 tokens (the default 512 would
+# leave a 512-token prefill on the einsum route)
+ZOO_Q_BLOCK = 192
+# the padded user axis: the fleet run padded past n by this many users
+PAD_USERS = 8
 
 
 def card_line() -> str:
@@ -1247,9 +1274,10 @@ def phase_fleet(Scenario, replay):
     overflow retries, and two profiles at L_b = 2.0: the first
     FLEET_PROFILE_S slots and the whole FLEET_HORIZON_S (kernels a slot,
     device busy, idle share, the replay's device seconds). Returns the
-    replay launches of the L_b = 2.0 run (one a slot)."""
+    replay launches of the L_b = 2.0 run (one a slot) and that run's
+    (result, sim, Scenario kwargs)."""
     online_replay_cuda = replay.online_replay_cuda
-    launches = None
+    launches = last = None
     for over in ({}, {"L_b": 2.0}):
         kw = dict(policy="online", n_users=FLEET_N,
                   horizon_s=FLEET_HORIZON_S, seed=0, **over)
@@ -1276,6 +1304,7 @@ def phase_fleet(Scenario, replay):
         assert paths == (T, 0), (label, "rows by path", paths)
         if over:
             assert res.mean_H > 0, "the L_b=2.0 run never had H > 0"
+            last = (res, sim, kw)
         print(f"scan: {label}, {T} slots: wall {wall!r} s, "
               f"{T / wall!r} slots/s, {FLEET_N * T / wall!r} user-slots/s, "
               f"peak {peak!r} GiB; jax_chunk=0 tuned to {info.chunk} slots, "
@@ -1301,7 +1330,63 @@ def phase_fleet(Scenario, replay):
               f"{1.0 - busy / wall!r} of the unprofiled wall), of which the "
               f"replay {replay_s!r} s ({replay_s / busy:.1%} of busy)",
               flush=True)
-    return launches
+    return launches, last
+
+
+def assert_same_run(ref, rsim, res, sim, label):
+    """Two scan runs of one configuration equal bit for bit: the push log,
+    the Q/H/energy traces, every per-user field and carry leaf of the
+    final state, the rng key."""
+    assert list(res.push_log) == list(ref.push_log), label
+    for f in ("energy_j", "updates", "mean_Q", "mean_H", "drops"):
+        assert getattr(res, f) == getattr(ref, f), (label, f)
+    for f in ("trace_t", "trace_Q", "trace_H", "trace_energy"):
+        assert np.array_equal(getattr(res, f), getattr(ref, f)), (label, f)
+    for f in ("mode", "cooldown", "app", "app_rem", "train_rem", "corun",
+              "idle_gap", "pulled_at", "energy", "updates", "plan",
+              "rng_key"):
+        assert np.array_equal(getattr(sim.state, f),
+                              getattr(rsim.state, f)), (label, f)
+
+
+def phase_n_devices(Scenario, fleet):
+    """(e) the padded user axis at fleet scale: the L_b = 2.0 fleet run of
+    (b) again with ``n_devices=1`` (one card: the user axis is not padded)
+    and padded past n by PAD_USERS inert users (the scan engine's internal
+    ``n_arr``), each equal to (b)'s run bit for bit (``assert_same_run``);
+    ``autotune_scan_params(sim, n_devices=1)`` equal to the single-device
+    call."""
+    from repro_torch.core import autotune, vector_engine
+    ref, rsim, kw = fleet
+    tuned = autotune.autotune_scan_params(rsim, n_devices=1)
+    assert vars(tuned) == vars(autotune.autotune_scan_params(rsim)), tuned
+    runs = {}
+    for label, n_arr, over in (("n_devices=1", 0, {"n_devices": 1}),
+                               (f"padded to n_arr {FLEET_N + PAD_USERS}",
+                                FLEET_N + PAD_USERS, {})):
+        sim = Scenario(engine="jax", jax_chunk=0, **kw, **over).build(
+            device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if n_arr:
+            res = vector_engine._Scan([sim], torch.device("cuda"),
+                                      n_arr=n_arr).run()[0]
+        else:
+            assert sim.resolve_engine() == "jax"
+            res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert sim.scan_info.n_arr == (n_arr or FLEET_N), sim.scan_info
+        assert_same_run(ref, rsim, res, sim, label)
+        runs[label] = wall
+        print(f"scan (e) online at {FLEET_N} users, L_b=2.0, {label}: wall "
+              f"{wall!r} s; push log ({len(res.push_log)} pushes), trace_Q, "
+              f"trace_H, trace_energy, {res.updates} updates, energy "
+              f"{res.energy_j!r} J and every per-user field equal to (b)'s "
+              f"run bit for bit; autotune at n_devices=1 = single device "
+              f"(chunk {tuned.jax_chunk}, capacity {tuned.push_capacity})",
+              flush=True)
+    return runs
 
 
 def phase_coverage(Scenario):
@@ -1376,14 +1461,14 @@ def phase_sweep(Scenario, run_sweep):
 
 def phase_scan(Scenario, run_sweep, replay):
     """The scan-engine phase: (a) the replay kernel, (b) fleet scale,
-    (c) coverage, (d) a batched sweep. Returns the replay's kernel-record
-    numbers."""
+    (c) coverage, (d) a batched sweep, (e) the padded user axis. Returns
+    the replay's kernel-record numbers."""
     t = time.perf_counter()
     rec = phase_replay(replay)
     print(f"scan phase (a) replay: {time.perf_counter() - t:.1f} s",
           flush=True)
     t = time.perf_counter()
-    launches = phase_fleet(Scenario, replay)
+    launches, fleet = phase_fleet(Scenario, replay)
     print(f"scan phase (b) fleet: {time.perf_counter() - t:.1f} s",
           flush=True)
     t = time.perf_counter()
@@ -1393,6 +1478,10 @@ def phase_scan(Scenario, run_sweep, replay):
     t = time.perf_counter()
     phase_sweep(Scenario, run_sweep)
     print(f"scan phase (d) sweep: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    phase_n_devices(Scenario, fleet)
+    print(f"scan phase (e) n_devices: {time.perf_counter() - t:.1f} s",
           flush=True)
     return dict(rec, launches=launches)
 
@@ -1927,16 +2016,16 @@ def phase_build(cuda_build, names=None):
 
 def phase_k4(flash_attention):
     """K4 (CUDA C++) against its plain version on the same CUDA tensors:
-    the TestFlashAttention shapes and a ragged S, causal and not, at the
+    the TestFlashAttention shapes, a ragged S, the Qwen3 serving shape and
+    the newer configurations' (``K4_ZOO``), causal and not, at the
     reference's bounds (2e-5 in f32: the CUDA-core form; 2e-2 in bf16: the
     wgmma form, which rounds P to bf16), then the serving shape in bf16
     with its times: the kernel, the plain version, the bound and torch's
     SDPA (one call computing the same function; the port never calls
     it)."""
-    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(4)
     max_err = 0.0
-    for B, H, KV, S, d in K4_SHAPES + (K4_SERVE,):
+    for B, H, KV, S, d in K4_SHAPES + (K4_SERVE,) + tuple(K4_ZOO.values()):
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             q = randn((B, H, S, d), gen, dtype)
             k, v = (randn((B, KV, S, d), gen, dtype) for _ in "kv")
@@ -1951,9 +2040,27 @@ def phase_k4(flash_attention):
             print(f"K4 {(B, H, KV, S, d)} {str(dtype)[6:]}: causal and "
                   f"full match the plain version at {tol} (max abs err "
                   f"{err!r} full)", flush=True)
-    B, H, KV, S, d = K4_SERVE
+    ms, plain, bound, by, sdpa, _ = k4_times(flash_attention, K4_SERVE,
+                                             gen, "serving shape")
+    return max_err, (ms, plain, bound, by, sdpa)
+
+
+def k4_times(flash_attention, shape, gen, label):
+    """K4 at ``shape`` (B, H, KV, S, d) in bf16, causal, on fresh inputs:
+    the kernel against its plain version at the bf16 bound (2e-2), then
+    times by CUDA events: the kernel, the plain version, torch's SDPA (one
+    call computing the same function; the port never calls it), and the
+    bound (the larger of the bytes at the HBM rate and the FLOPs of j <= i
+    at the bf16 tensor-core peak). Returns (ms, plain ms, bound ms, bound
+    by, SDPA ms, max abs err)."""
+    import torch.nn.functional as F
+    B, H, KV, S, d = shape
     q = randn((B, H, S, d), gen, torch.bfloat16)
     k, v = (randn((B, KV, S, d), gen, torch.bfloat16) for _ in "kv")
+    out = flash_attention(q, k, v, causal=True, kernel="cuda")
+    ref = flash_attention(q, k, v, causal=True, kernel="reference")
+    err, ok = max_violation(out.float(), ref.float(), 2e-2, 2e-2)
+    assert ok and out.dtype == torch.bfloat16, (shape, err)
     ms = time_ms(lambda: flash_attention(q, k, v, kernel="cuda"), 50)
     plain = time_ms(lambda: flash_attention(q, k, v, kernel="reference"), 10)
     sdpa = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1961,15 +2068,25 @@ def phase_k4(flash_attention):
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, o, k, v
     flops = 4 * B * H * d * S * (S + 1) // 2     # QK^T and PV, j <= i only
     bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
-    print(f"K4 serving shape {K4_SERVE} bf16 causal: kernel {ms:.6f} ms "
-          f"(the first, CUDA-core form: {FIRST_FORM_MS['K4']} ms), plain "
-          f"{plain:.6f} ms, SDPA {sdpa:.6f} ms, bound {bound:.6f} ms "
-          f"({nbytes} B at 3.35 TB/s; {flops} FLOP take "
-          f"{flops / BF16_FLOPS * 1e3:.6f} ms at the bf16 tensor-core peak, "
-          f"{flops / F32_FLOPS * 1e3:.6f} ms on the f32 CUDA cores)",
-          flush=True)
-    return max_err, (ms, plain, bound, "bytes" if nbytes / HBM_BPS >=
-                     flops / BF16_FLOPS else "operations", sdpa)
+    by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
+    print(f"K4 {label} {shape} bf16 causal: equals the plain version at "
+          f"2e-2 (max abs err {err!r}); kernel {ms:.6f} ms (the first, "
+          f"CUDA-core form at the Qwen3 serving shape: "
+          f"{FIRST_FORM_MS['K4']} ms), plain {plain:.6f} ms, SDPA "
+          f"{sdpa:.6f} ms, bound {bound:.6f} ms by {by} ({nbytes} B at 3.35 "
+          f"TB/s; {flops} FLOP take {flops / BF16_FLOPS * 1e3:.6f} ms at "
+          f"the bf16 tensor-core peak, {flops / F32_FLOPS * 1e3:.6f} ms on "
+          f"the f32 CUDA cores)", flush=True)
+    return ms, plain, bound, by, sdpa, err
+
+
+def phase_k4_zoo(flash_attention):
+    """K4 at the three shapes the newer configurations bring (``K4_ZOO``),
+    each against its plain version and timed. Returns {arch: (ms, plain
+    ms, bound ms, bound by, SDPA ms, max abs err)}."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    return {arch: k4_times(flash_attention, shape, gen, arch)
+            for arch, shape in K4_ZOO.items()}
 
 
 def k3_fold(X, dtv, A, Bh, Ch):
@@ -2210,17 +2327,14 @@ def profile_prefill(srv, prompts, top=10):
               flush=True)
 
 
-def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
-    """``BatchedServer.generate`` of SERVE_BATCH prompts of SERVE_PROMPT
-    tokens and SERVE_GEN new tokens on the card (after a short warm-up
-    generate), counting the kernel's launches over exactly that call; the
-    prefill and each decode step timed by CUDA events around the model's
-    calls; then the kernel-vs-plain prefill comparison and a profile of
-    one prefill and of a few decode steps. Returns (server, prompts,
-    tokens, launches)."""
-    srv = BatchedServer(cfg, params=params, device="cuda")
-    prompts = serve_prompts(cfg)
-    srv.generate(prompts[:, :64], 2)                      # warm-up
+def timed_generate(srv, prompts, counter, on_start=None, warm_len=64):
+    """``srv.generate(prompts, SERVE_GEN)`` on the card after a short
+    warm-up generate (prompts cut to ``warm_len`` tokens), counting
+    ``counter``'s launches over exactly that call (``on_start()`` runs
+    just before it); the prefill and each decode step timed by CUDA
+    events around the model's calls. Returns (tokens, wall s, launches,
+    prefill ms, [decode ms], peak bytes)."""
+    srv.generate(prompts[:, :warm_len], 2)                # warm-up
     spans = {"prefill": [], "decode_step": []}
 
     def timed(name):
@@ -2241,6 +2355,8 @@ def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
                                decode_step=timed("decode_step"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if on_start is not None:
+        on_start()
     counter.launches = 0
     t0 = time.perf_counter()
     toks = srv.generate(prompts, SERVE_GEN)
@@ -2251,7 +2367,21 @@ def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
     prefill_ms = spans["prefill"][0][0].elapsed_time(spans["prefill"][0][1])
     decode_ms = [a.elapsed_time(b) for a, b in spans["decode_step"]]
     assert toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.dtype == np.int32
-    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert ((toks >= 0) & (toks < srv.cfg.vocab_size)).all()
+    return toks, wall, launches, prefill_ms, decode_ms, peak
+
+
+def run_serve(BatchedServer, build_model, cfg, params, counter, per_layer):
+    """``BatchedServer.generate`` of SERVE_BATCH prompts of SERVE_PROMPT
+    tokens and SERVE_GEN new tokens on the card (``timed_generate``); then
+    the kernel-vs-plain prefill comparison and a profile of one prefill
+    and of a few decode steps. Returns (server, prompts, tokens,
+    launches)."""
+    srv = BatchedServer(cfg, params=params, device="cuda")
+    prompts = serve_prompts(cfg)
+    toks, wall, launches, prefill_ms, decode_ms, peak = timed_generate(
+        srv, prompts, counter)
+    model = srv.model
     assert launches == per_layer * cfg.num_layers, (launches,
                                                     cfg.num_layers)
     print(f"serve {cfg.name} ({cfg.param_count()} parameters, "
@@ -2310,6 +2440,165 @@ def phase_serve_mamba(BatchedServer, build_model, k3):
                      per_layer=1)[3]
 
 
+def card_params(build_model, cfg, seed=0):
+    """``cfg``'s parameters drawn on the card from a CUDA generator seeded
+    with ``seed`` (a CPU draw of billions of parameters takes minutes).
+    Returns (params, seconds to draw them)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def serve_zoo_model(BatchedServer, build_model, cfg, k4, moe_mod, note=""):
+    """One configuration served on the card under attention_impl="flash"
+    with random weights from seed 0: ``timed_generate``, K4 launched once a
+    layer, and (the MoE family) the (token, expert) slots the capacity
+    dropped in that generate's prefill (decode takes the dense combine).
+    Returns (server, prompts, tokens, figures)."""
+    cfg = dataclasses.replace(cfg, attention_impl="flash")
+    params, init_s = card_params(build_model, cfg)
+    srv = BatchedServer(cfg, params=params, device="cuda")
+    prompts = serve_prompts(cfg)
+    moe = cfg.family == "moe"
+    # the warm-up at the full prompt length: a MoE prefill's sorted
+    # dispatch runs only from 4 x experts tokens a row
+    toks, wall, launches, prefill_ms, decode_ms, peak = timed_generate(
+        srv, prompts, k4,
+        on_start=(lambda: setattr(moe_mod, "DROPPED", [])) if moe else None,
+        warm_len=SERVE_PROMPT)
+    dropped = None
+    if moe:
+        dropped = sum(int(d) for d in moe_mod.DROPPED)
+        moe_mod.DROPPED = None
+    assert launches == cfg.num_layers, (cfg.name, launches, cfg.num_layers)
+    slots = cfg.num_layers * SERVE_BATCH * SERVE_PROMPT * \
+        cfg.num_experts_per_tok if moe else 0
+    fig = dict(tokens_per_s=toks.size / wall, wall_s=wall,
+               prefill_ms=prefill_ms,
+               decode_ms=sum(decode_ms) / len(decode_ms),
+               peak_gib=peak / 2 ** 30, k4_launches=launches,
+               layers=cfg.num_layers, params=cfg.param_count(),
+               dropped_slots=dropped, routed_slots=slots or None)
+    moe_note = ""
+    if moe:
+        C = max(int(SERVE_PROMPT * cfg.num_experts_per_tok / cfg.num_experts
+                    * cfg.moe_capacity_factor), 1)
+        moe_note = (f"; prefill's sorted dispatch (capacity {C} a row and "
+                    f"expert) dropped {dropped} of {slots} (token, expert) "
+                    f"slots ({dropped / slots:.2%}) over {cfg.num_layers} "
+                    "layers")
+    print(f"serve {cfg.name}{note} ({cfg.param_count()} parameters, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"attention_impl=flash, random weights from seed 0 drawn on the "
+          f"card in {init_s!r} s): generate {SERVE_BATCH} x {SERVE_PROMPT} "
+          f"prompt tokens + {SERVE_GEN} new: wall {wall!r} s, "
+          f"{toks.size / wall!r} generated tokens/s; prefill {prefill_ms!r} "
+          f"ms, decode {fig['decode_ms']!r} ms/token (CUDA events, "
+          f"{len(decode_ms)} steps); K4 launches {launches}; peak memory "
+          f"{fig['peak_gib']!r} GiB{moe_note}; first row "
+          f"{toks[0][:8].tolist()}", flush=True)
+    return srv, prompts, toks, fig
+
+
+def phase_zoo(BatchedServer, build_model, get_config, k4, moe_mod):
+    """The LM zoo's newer configurations on the card (random weights,
+    8 x 512-token prompts + 32 greedy tokens, attention_impl="flash"):
+    (a) granite-moe-1b-a400m at full width, then its einsum route on the
+    same weights: bf16 prefill logits at the Qwen3 phase's bound
+    (``compare_routes``), and in f32 (K4's CUDA-core form) the generated
+    tokens equal; (b) qwen2.5-3b at full width, and its chunked-attention
+    prefill (``ZOO_Q_BLOCK``) against the einsum route's; (c)
+    phi4-mini-3.8b at full width; (d) internlm2-20b and qwen3-moe-30b-a3b
+    at their published widths, depth cut to ``ZOO_CUT``. Returns {arch:
+    figures}."""
+    out = {}
+    t = time.perf_counter()
+    cfg = get_config("granite-moe-1b-a400m")
+    srv, prompts, toks, out[cfg.name] = serve_zoo_model(
+        BatchedServer, build_model, cfg, k4, moe_mod)
+    params = srv.params
+    xla = BatchedServer(dataclasses.replace(cfg, attention_impl="xla"),
+                        params=params, device="cuda")
+    k4.launches = 0
+    xla_toks = xla.generate(prompts, SERVE_GEN)
+    assert k4.launches == 0, "the einsum route launched K4"
+    diff = compare_routes(f"serve {cfg.name}, flash (K4) vs einsum route, "
+                          "bf16", prefill_logits(srv.model, params, prompts),
+                          prefill_logits(xla.model, params, prompts))
+    bf16_equal = float((xla_toks == toks).mean())
+    f32 = {impl: BatchedServer(dataclasses.replace(
+        cfg, dtype="float32", attention_impl=impl), params=params,
+        device="cuda") for impl in ("flash", "xla")}
+    k4.launches = 0
+    f_toks = f32["flash"].generate(prompts, SERVE_GEN)
+    assert k4.launches == cfg.num_layers, k4.launches
+    x_toks = f32["xla"].generate(prompts, SERVE_GEN)
+    assert k4.launches == cfg.num_layers, "the einsum route launched K4"
+    f_log = prefill_logits(f32["flash"].model, params, prompts)
+    x_log = prefill_logits(f32["xla"].model, params, prompts)
+    f32_diff = float((f_log - x_log).abs().max())
+    assert np.array_equal(f_toks, x_toks), (f_toks, x_toks)
+    assert f32_diff < 1e-3 * max(1.0, float(x_log.abs().max())), f32_diff
+    out[cfg.name].update(bf16_route_diff=diff, bf16_equal_tokens=bf16_equal,
+                         f32_route_diff=f32_diff)
+    print(f"serve {cfg.name}: in bf16 the einsum route's greedy tokens equal "
+          f"the flash route's on {bf16_equal!r} of {toks.size}; in f32 "
+          f"(K4's CUDA-core form) all {f_toks.size} generated tokens equal, "
+          f"prefill logits max abs diff {f32_diff!r} (bound 1e-3 x max(1, "
+          f"max|logit|))", flush=True)
+    del srv, xla, f32, params
+    torch.cuda.empty_cache()
+    print(f"zoo (a) granite: {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    srv, prompts, _, out[cfg.name] = serve_zoo_model(
+        BatchedServer, build_model, cfg, k4, moe_mod)
+    params = srv.params
+    chunked = dataclasses.replace(cfg, attention_impl="chunked",
+                                  attn_q_block=ZOO_Q_BLOCK)
+    k4.launches = 0
+    c_log = prefill_logits(build_model(chunked), params, prompts)
+    x_log = prefill_logits(build_model(dataclasses.replace(
+        cfg, attention_impl="xla")), params, prompts)
+    assert k4.launches == 0, "the chunked or einsum route launched K4"
+    out[cfg.name]["chunked_diff"] = compare_routes(
+        f"serve {cfg.name}, chunked attention (attn_q_block {ZOO_Q_BLOCK}: "
+        f"{SERVE_PROMPT // ZOO_Q_BLOCK} blocks and a tail of "
+        f"{SERVE_PROMPT % ZOO_Q_BLOCK}) vs einsum route, bf16", c_log, x_log)
+    del srv, params
+    torch.cuda.empty_cache()
+    print(f"zoo (b) qwen2.5-3b: {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    cfg = get_config("phi4-mini-3.8b")
+    srv, _, _, out[cfg.name] = serve_zoo_model(
+        BatchedServer, build_model, cfg, k4, moe_mod)
+    del srv
+    torch.cuda.empty_cache()
+    print(f"zoo (c) phi4-mini-3.8b: {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+    for arch, layers in ZOO_CUT.items():
+        t = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        note = (f", depth cut to {layers} of {full.num_layers} layers "
+                f"({full.param_count() * 4 / 1e9:.1f} GB of f32 weights at "
+                f"full depth)")
+        srv, _, _, out[arch] = serve_zoo_model(
+            BatchedServer, build_model, cfg, k4, moe_mod, note=note)
+        out[arch]["full_layers"] = full.num_layers
+        del srv
+        torch.cuda.empty_cache()
+        print(f"zoo (d) {arch}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2336,7 +2625,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_cuda)
     from repro_torch.launch.serve import BatchedServer
-    from repro_torch.models import build_model, ssm as ssm_model
+    from repro_torch.models import build_model, moe as moe_mod, \
+        ssm as ssm_model
     from repro_torch import serve
     from repro_torch.fault import FleetMonitor
     from repro_torch.optim import ErrorFeedback
@@ -2361,6 +2651,8 @@ def main() -> int:
     print(f"CUDA build phase: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     k4_err, k4_times = phase_k4(flash_attention)
+    k4_zoo = phase_k4_zoo(flash_attention)
+    k4_err = max([k4_err] + [v[5] for v in k4_zoo.values()])
     print(f"K4 phase: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     k3_err, k3_times = phase_k3(ssd_scan, ssm_model)
@@ -2464,6 +2756,12 @@ def main() -> int:
         BatchedServer, build_model, ssd_scan.ssd_intra_chunk_cuda)
     print(f"serve Mamba2 phase: {time.perf_counter() - t:.1f} s", flush=True)
 
+    # ---- 8b. the newer configurations: the MoE family, three dense ones --
+    t = time.perf_counter()
+    zoo = phase_zoo(BatchedServer, build_model, get_config,
+                    flash_attention_cuda, moe_mod)
+    print(f"zoo phase: {time.perf_counter() - t:.1f} s", flush=True)
+
     # ---- 9. the kernels record ---------------------------------------------
     ms, plain_ms, b_ms = times[LENET_N, 1]
     k2_ms, k2_plain, k2_bound, _ = k2_times[QWEN_N]
@@ -2565,7 +2863,13 @@ def main() -> int:
         "bound_ms": k4_times[2],
         "bound_by": k4_times[3],
         "library_ms": k4_times[4],
-    }]}), flush=True)
+        "zoo_shapes": {arch: {
+            "shape": list(K4_ZOO[arch]), "launches": zoo[arch]["k4_launches"],
+            "ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
+            "library_ms": v[4], "max_abs_err": v[5]}
+            for arch, v in k4_zoo.items()},
+        "zoo_launches": {arch: f["k4_launches"] for arch, f in zoo.items()},
+    }], "zoo_serving": zoo}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2592,5 +2896,33 @@ def main_scan() -> int:
     return 0
 
 
+def main_zoo() -> int:
+    """``python3 chip_smoke.py zoo``: K4's build, K4 at the newer
+    configurations' shapes and the zoo phase alone (a few minutes), for
+    work on the LM zoo; prints no ``ok`` line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda_build
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cuda)
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import build_model, moe as moe_mod
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    phase_build(_cuda_build, ("flash_attention",))
+    t = time.perf_counter()
+    phase_k4_zoo(flash_attention)
+    zoo = phase_zoo(BatchedServer, build_model, get_config,
+                    flash_attention_cuda, moe_mod)
+    print(json.dumps(zoo), flush=True)
+    print(f"zoo phase: {time.perf_counter() - t:.1f} s", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main_scan() if sys.argv[1:] == ["scan"] else main())
+    sys.exit({("scan",): main_scan, ("zoo",): main_zoo}.get(
+        tuple(sys.argv[1:]), main)())

@@ -59,12 +59,16 @@ class AggregationRule:
       and a rule without it degrades that engine to the numpy engine.
     - ``supports_vmap``: ``scan_weight`` may run on a batched sweep's
       ``(B, n)`` tensors (``run_sweep``).
+    - ``supports_shard``: ``scan_weight`` may run on a user axis padded
+      past the live ``n`` (``SimConfig.n_devices``; its per-user carry
+      leaves are zero-padded, and pad users never push).
     """
 
     name: str = ""
     needs_gap: bool = False
     supports_jax: bool = True
     supports_vmap: bool = True
+    supports_shard: bool = True
 
     def weight(self, lag, gap, v_norm, fleet=None, users=None):
         """Applied mixing weight(s) in ``[0, 1]``; ``lag``/``gap``

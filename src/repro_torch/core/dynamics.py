@@ -78,12 +78,17 @@ class DeviceDynamics:
     ``supports_jax``: ``scan_step`` exists (``SimConfig`` checks the flag
     against the hook; active dynamics without it degrade the scan engine
     to the numpy engine). ``supports_vmap``: ``scan_step`` may run on a
-    batched sweep's ``(B, n)`` tensors."""
+    batched sweep's ``(B, n)`` tensors. ``supports_shard``: ``scan_step``
+    may run on a user axis padded past the live ``n``
+    (``SimConfig.n_devices``): it draws at ``dv.n`` and pads with
+    ``dv.pad_users(x, fill)``, a fill that keeps the ``pad_state`` rows
+    inert."""
 
     name: str = ""
     active: bool = True
     supports_jax: bool = True
     supports_vmap: bool = True
+    supports_shard: bool = True
     dropout: str = "lose"
 
     def init_state(self, n: int, cfg=None, fleet=None):
@@ -97,9 +102,11 @@ class DeviceDynamics:
 
     def pad_state(self, k: int):
         """``(k,)``-leading inert rows matching ``init_state``'s dict,
-        for a user axis padded past the live ``n``; ``None``: no recipe.
-        The port's one-card scan never pads; the recipe is kept with the
-        reference's for the sharded scan (ROADMAP Queue 1 item 9)."""
+        for a user axis padded past the live ``n`` (``SimConfig.n_devices``
+        with ``n`` not a multiple of the device count): the rows must keep
+        their users up under the engine's fill-1.0 padded draws, so a pad
+        user parked in MODE_OFF stays there. ``None``: no recipe, and a
+        padded run fails with instructions."""
         return None
 
     def jax_cache_key(self):
@@ -336,15 +343,18 @@ class MarkovChurnDynamics(DeviceDynamics):
 
     def scan_step(self, dyn, dv):
         # one split and a (2, n) draw a slot, unconditionally, at the live
-        # n: the host engines' key chain and bits (core/prng.py)
+        # n: the host engines' key chain and bits (core/prng.py); padded
+        # with 1.0, which keeps the pad rows' chains on and never bad
         keys = prng.split_t(dv.rng_key)
         dv.rng_key = keys[..., 0, :]
         u = prng.uniform_t(keys[..., 1, :], 2 * dv.n)
+        u_avail = dv.pad_users(u[..., :dv.n], 1.0)
+        u_net = dv.pad_users(u[..., dv.n:], 1.0)
         (capacity, drain_train, drain_corun, charge_rate, battery_min,
          p_net_bad, p_net_recover, net_delay_slots,
          resume_penalty_s) = dv.consts
         return self._transition(
-            torch, dyn, u[..., :dv.n], u[..., dv.n:], dv.mode, dv.corun,
+            torch, dyn, u_avail, u_net, dv.mode, dv.corun,
             dv.t_d, capacity, drain_train, drain_corun, charge_rate,
             battery_min, p_net_bad, p_net_recover, net_delay_slots,
             resume_penalty_s, zero=dv.fp_zero)

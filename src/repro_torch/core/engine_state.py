@@ -14,6 +14,13 @@ scan engine (core/vector_engine.py) keeps the same state as tensors with
 a leading config axis and streams its pushes through a ``PushBuffer``, a
 preallocated ``(B, capacity, 6)`` tensor filled by scatter and drained
 into the ``PushLog`` once a chunk (``PushLog.extend_rows``).
+
+``pad_to_devices``, ``pad_state_per_user`` and ``unpad_state_per_user``
+extend a host state's user axis with INERT rows and cut them off again,
+for the scan engine's user axis padded to a multiple of the device count
+(``SimConfig.n_devices``). The reference's ``state_shardings`` (one
+``NamedSharding`` a leaf over a JAX mesh) has no counterpart: the port's
+scan runs on one device, where every leaf is whole.
 """
 from __future__ import annotations
 
@@ -246,3 +253,121 @@ class PushLog:
 
     def __repr__(self):
         return f"PushLog(n={self._n})"
+
+
+# ---------------------------------------------------------------------------
+# The padded user axis (``SimConfig.n_devices``, core/vector_engine.py):
+# pad rows park in MODE_OFF with no app and a zeroed catalog row (the scan
+# engine zero-pads its table gathers), so they draw no energy, never enter
+# the waiting queue and never push; the scheduler scalars evolve exactly
+# as at the live n.
+# ---------------------------------------------------------------------------
+_PER_USER_FIELDS = ("mode", "cooldown", "app", "app_rem", "train_rem",
+                    "corun", "idle_gap", "pulled_at", "energy", "updates",
+                    "plan")
+
+# inert fill values of the per-user fields; everything not named is 0/False
+_PAD_FILLS = {"mode": MODE_OFF, "app": -1, "plan": PLAN_HOLD}
+
+
+def pad_to_devices(n: int, n_devices: int) -> int:
+    """Smallest multiple of ``n_devices`` >= ``n`` (the padded user-axis
+    length ``n_arr``)."""
+    d = max(int(n_devices), 1)
+    return -(-int(n) // d) * d
+
+
+def _map_tree(fn, tree, *others):
+    """Leaf-wise map over dict / list / tuple trees (``None`` passes
+    through); ``others`` are trees of the same structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, *xs) for xs in zip(tree, *others))
+    return fn(tree, *others)
+
+
+def _leaves(tree):
+    out = []
+    _map_tree(out.append, tree)
+    return out
+
+
+def _check_shapes(state: EngineState, n: int) -> None:
+    """Every per-user array ``(n,)``-leading, and every ``dyn`` leaf with
+    a leading axis too; raises ValueError naming the offender."""
+    for f in _PER_USER_FIELDS:
+        shape = np.shape(getattr(state, f))
+        if not shape or shape[0] != n:
+            raise ValueError(
+                f"EngineState.{f} must be an ({n},)-leading per-user "
+                f"array, got shape {shape}")
+    for leaf in _leaves(state.dyn):
+        shape = np.shape(leaf)
+        if len(shape) >= 1 and shape[0] != n:
+            raise ValueError(
+                f"EngineState.dyn leaf has leading dim {shape[0]}, "
+                f"expected the run's n_users={n} (shape {shape}); "
+                "dynamics init_state must return (n,)-leading arrays")
+
+
+def pad_state_per_user(state: EngineState, n_arr: int,
+                       dyn_rows=None) -> EngineState:
+    """Host copy of ``state`` with every per-user leaf extended to
+    ``n_arr`` rows of INERT users: MODE_OFF, no app, zero
+    energy/updates/cooldown. Policy and rule carries zero-pad their
+    ``(n,)``-leading leaves. ``dyn_rows`` is the dynamics' ``pad_state(k)``
+    tree of inert rows (required when ``state.dyn`` is populated), cast
+    to the state's leaf dtypes. Shape-checked at ``n_arr``."""
+    n = int(np.shape(state.mode)[0])
+    k = int(n_arr) - n
+    if k < 0:
+        raise ValueError(f"n_arr={n_arr} is below the live n={n}")
+    if k == 0:
+        return state
+
+    def pad(x, fill=0):
+        x = np.asarray(x)
+        return np.concatenate(
+            [x, np.full((k,) + x.shape[1:], fill, dtype=x.dtype)])
+
+    def pad_carry_leaf(x):
+        a = np.asarray(x)
+        return pad(a) if a.ndim >= 1 and a.shape[0] == n else x
+
+    kw = {f: pad(getattr(state, f), _PAD_FILLS.get(f, 0))
+          for f in _PER_USER_FIELDS}
+    kw["carry"] = _map_tree(pad_carry_leaf, state.carry)
+    kw["agg_carry"] = _map_tree(pad_carry_leaf, state.agg_carry)
+    if state.dyn is not None:
+        if dyn_rows is None:
+            raise ValueError(
+                "pad_state_per_user needs the dynamics' pad_state(k) rows "
+                "to pad a populated EngineState.dyn")
+        kw["dyn"] = _map_tree(
+            lambda leaf, rows: np.concatenate(
+                [np.asarray(leaf), np.asarray(rows, np.asarray(leaf).dtype)])
+            if np.ndim(leaf) >= 1 and np.shape(leaf)[0] == n else leaf,
+            state.dyn, dyn_rows)
+    new = dataclasses.replace(state, **kw)
+    _check_shapes(new, int(n_arr))
+    return new
+
+
+def unpad_state_per_user(state: EngineState, n: int) -> EngineState:
+    """Drop the pad rows again: every ``(n_arr,)``-leading per-user, carry
+    and dyn leaf sliced back to the live ``n``."""
+    n_arr = int(np.shape(state.mode)[0])
+    if n_arr == n:
+        return state
+
+    def cut(x):
+        return x[:n] if np.ndim(x) >= 1 and np.shape(x)[0] == n_arr else x
+
+    kw = {f: cut(getattr(state, f)) for f in _PER_USER_FIELDS}
+    for f in ("carry", "agg_carry", "dyn"):
+        kw[f] = _map_tree(cut, getattr(state, f))
+    return dataclasses.replace(state, **kw)

@@ -75,6 +75,15 @@ class Policy:
     - ``supports_vmap``: ``scan_step`` may run on a batched sweep's
       ``(B, n)`` tensors (``run_sweep``). Offline clears it: its host
       knapsack plans one config at a time.
+    - ``supports_shard``: ``scan_step`` may run on a user axis padded to
+      a multiple of the device count (``SimConfig.n_devices``). The
+      engine's slot view then carries ``sv.n`` (the LIVE user count),
+      ``sv.n_arr`` (the padded length, ``sv.n`` unpadded) and
+      ``sv.pad_users(x, fill)``: a hook draws its per-user randomness at
+      ``sv.n`` and pads it (threefry draws depend on the shape, so a draw
+      at ``n_arr`` would fork the stream from the unpadded engines).
+      Offline clears it, as in the JAX package (host callbacks in the
+      step).
     """
 
     name: str = ""
@@ -83,6 +92,7 @@ class Policy:
     supports_vectorized: bool = False
     supports_jax: bool = False
     supports_vmap: bool = True
+    supports_shard: bool = True
 
     def init_carry(self, n: int, cfg):
         """Per-run policy state (``EngineState.carry``): a dict that the
@@ -408,7 +418,9 @@ class OnlinePolicy(Policy):
         base = sv.V * p_s * sv.t_d - sv.Q
         rhs = sv.V * p_i * sv.t_d
         gap_idle = sv.idle_gap + sv.epsilon
-        lag = sv.in_flight + torch.arange(sv.n + 1, device=sv.device)
+        # one entry a lag the slot can reach, over the (padded) user axis
+        # (pad users never wait: entries past n + 1 are never read)
+        lag = sv.in_flight + torch.arange(sv.n_arr + 1, device=sv.device)
         gap_vec = _gradient_gap_t(vn, lag, sv.eta, sv.beta)
         # the users' sequential lag coupling, replayed on the device (one
         # launch a slot; with H == 0 the same function is the elementwise
@@ -434,8 +446,10 @@ class OfflinePolicy(Policy):
     name = "offline"
     supports_vectorized = True
     supports_jax = True
-    # the knapsack plans on the host, one config at a time
+    # the knapsack plans on the host, one config at a time, and is kept
+    # off the padded user axis (SimConfig.n_devices), as in JAX
     supports_vmap = False
+    supports_shard = False
 
     def init_carry(self, n, cfg):
         return {"next_plan": 0.0}
@@ -680,7 +694,9 @@ class EpsGreedyPolicy(Policy):
         # slot, unconditionally
         keys = prng.split_t(sv.rng_key)
         sv.rng_key = keys[..., 0, :]
-        u = prng.uniform_t(keys[..., 1, :], sv.n)
+        # the live-n draw padded with 1.0 (never < eps: pads never
+        # explore), so the stream is the unpadded engines' at any padding
+        u = sv.pad_users(prng.uniform_t(keys[..., 1, :], sv.n), 1.0)
         delta = torch.where(sv.has_app, sv.pcor_g - sv.papp_g,
                             sv.PT - sv.PI)
         # u against eps in f64, as the JAX scan compares them under x64

@@ -92,6 +92,13 @@ class SimConfig:
     #                                 of the scan engine (0 = auto-sized;
     #                                 doubled and the chunk re-run on
     #                                 overflow)
+    # the scan engine's user axis sized to min(n_devices, available)
+    # devices (launch/mesh.py make_sim_mesh) and padded with inert users
+    # to a multiple of their count; Alg. 2's decisions stay bit for bit
+    # the unpadded run's. 0 = unpadded. On one card the run is the
+    # unpadded one (ROADMAP Queue 1 item 9: users over several GPUs wait
+    # for hardware that can verify them).
+    n_devices: int = 0
     # device dynamics (core/dynamics.py): "none" is the paper's always-on
     # fleet; "markov" (or a MarkovChurnDynamics) churns availability,
     # battery and network
@@ -201,6 +208,42 @@ class SimConfig:
             raise ValueError(
                 f"push_log_capacity must be non-negative, got "
                 f"{self.push_log_capacity}")
+        if self.n_devices < 0:
+            raise ValueError(
+                f"n_devices must be >= 0 (0 = unsharded), got "
+                f"{self.n_devices}")
+        if self.n_devices:
+            # the padded user axis exists only on the scan engine and never
+            # degrades (a fallback would make the knob lie about what ran):
+            # ineligible configs are refused here, with the reason
+            if self.engine in ("loop", "vectorized"):
+                raise ValueError(
+                    f"n_devices={self.n_devices} shards the jax chunked "
+                    f"scan; it cannot run under engine={self.engine!r} — "
+                    "use engine='jax' or 'auto'")
+            for what, obj in (("policy", pol), ("dynamics", dyn)):
+                if what == "dynamics" and not dyn.active:
+                    continue
+                if not getattr(obj, "supports_jax", False):
+                    raise ValueError(
+                        f"n_devices={self.n_devices} needs a jax-capable "
+                        f"{what}; {obj.name!r} has supports_jax=False")
+                if not getattr(obj, "supports_shard", True):
+                    raise ValueError(
+                        f"{what} {obj.name!r} does not support the "
+                        "sharded scan (supports_shard=False, e.g. host "
+                        "callbacks inside the step); run with n_devices=0")
+            if self.collect_push_log:
+                if not asup["jax"]:
+                    raise ValueError(
+                        f"n_devices={self.n_devices} with a push log "
+                        f"needs a jax-capable aggregation rule; "
+                        f"{agg.name!r} implements no scan_weight hook")
+                if not getattr(agg, "supports_shard", True):
+                    raise ValueError(
+                        f"aggregation rule {agg.name!r} does not support "
+                        "the sharded scan (supports_shard=False); run "
+                        "with n_devices=0")
 
 
 @dataclasses.dataclass
@@ -454,12 +497,23 @@ class FederatedSim:
         runs whose policy has ``scan_step``, whose dynamics (if active)
         has ``scan_step`` and whose rule has ``scan_weight`` (when a push
         log is collected); otherwise it degrades to the numpy engine when
-        the policy has that hook, else to the loop."""
+        the policy has that hook, else to the loop. A run with
+        ``n_devices`` takes the scan engine and never degrades."""
         cfg = self.cfg
         pol = self.policy
         vec_ok = (cfg.ml_mode == "trace" and set(self.ml) <= {"v_norm"}) \
             or (cfg.ml_mode == "real" and self.ml_backend is not None)
         engine = cfg.engine
+        if cfg.n_devices:
+            # the padded user axis (checked at construction) runs only on
+            # the scan engine and never degrades; per-slot host callbacks
+            # are what is left that it cannot run
+            if self.ml or self.ml_backend is not None:
+                raise ValueError(
+                    f"n_devices={cfg.n_devices} shards the jax chunked "
+                    "scan, which cannot run per-user ML hooks or a "
+                    "real-ML backend; set n_devices=0 for those runs")
+            return "jax"
         if engine == "auto":
             return "vectorized" if (vec_ok and pol.supports_vectorized) \
                 else "loop"

@@ -52,8 +52,21 @@ the numpy engine: the schedule (t, user, lag, corun) is equal, energy and
 ``mean_Q`` within rel 1e-9, ``mean_H`` within rel 1e-6 (the replay sums
 the gaps in user order, numpy pairwise), gaps and weights within rtol
 1e-9. After a scan run ``sim.scan_info`` records the chunk, the final
-push-buffer capacity, the overflow retries, the batch size and the
-auto-tuner's namespace (``None`` unless ``jax_chunk=0``).
+push-buffer capacity, the overflow retries, the batch size, the padded
+user-axis length ``n_arr`` and the auto-tuner's namespace (``None``
+unless it ran).
+
+A run with ``SimConfig.n_devices`` sizes its user axis to the devices of
+``launch.mesh.make_sim_mesh`` (D of them) and pads it with inert users to
+``n_arr = pad_to_devices(n, D)`` (core/engine_state.py): zero catalog
+rows, no arrivals, MODE_OFF state rows and the dynamics' ``pad_state``
+rows. The hooks see the live ``n`` (``sv.n``/``dv.n``), draw there and
+pad their draws (``pad_users``), so the threefry stream, the decisions,
+the queues, the push log and the live users' state are the unpadded
+run's bit for bit; the energy sums read the live users only. The run
+goes on the first device (one card: D = 1, ``n_arr = n``); ``_Scan``'s
+``n_arr`` pads past ``n`` on one device (the tests' check that padding
+is inert).
 """
 from __future__ import annotations
 
@@ -66,7 +79,9 @@ import torch
 
 from ..device import resolve_device
 from .engine_state import (MODE_COOL, MODE_OFF, MODE_TRAIN, MODE_WAIT,
-                           PLAN_HOLD, EngineState, PushBuffer, PushLog)
+                           PLAN_HOLD, EngineState, PushBuffer, PushLog,
+                           pad_state_per_user, pad_to_devices,
+                           unpad_state_per_user)
 from .policies import _gradient_gap_t, _trace_v_norm_t
 from .simulator import SimResult, n_slots, trace_v_norm
 from .staleness import gradient_gap
@@ -385,20 +400,23 @@ def _next_pow2(k: int) -> int:
     return c
 
 
-def _scan_setup(sim):
+def _scan_setup(sim, n_devices: int = 1):
     """Host operands of one sim: its catalog gathers, arrivals, knobs,
     hook operands and the push buffer's first capacity. ``jax_chunk=0``
-    (and a push log without ``push_log_capacity``) resolves against the
-    device memory budget (core/autotune.py)."""
+    (and, over several devices, a push log without
+    ``push_log_capacity``) resolves against the device memory budget
+    (core/autotune.py) of ``n_devices``."""
     cfg = sim.cfg
     n, T = cfg.n_users, n_slots(cfg)
     collect = cfg.collect_push_log
     tune = None
     chunk = cfg.jax_chunk
-    if chunk == 0:
+    if chunk == 0 or (n_devices > 1 and collect
+                      and not cfg.push_log_capacity):
         from .autotune import autotune_scan_params
-        tune = autotune_scan_params(sim)
-        chunk = tune.jax_chunk
+        tune = autotune_scan_params(sim, n_devices=n_devices)
+        if chunk == 0:
+            chunk = tune.jax_chunk
     chunk = min(chunk, T) if T else 0
     if not collect:
         cap = 0
@@ -420,6 +438,30 @@ def _scan_setup(sim):
         if sim.dynamics.active else (),
         statics=tuple(sim.policy.scan_statics(cfg)),
         overhead=cfg.include_scheduler_overhead)
+
+
+def _pad_setup(prep, sim, n_arr):
+    """The host operands and the initial state of one sim padded from
+    ``n`` to ``n_arr`` users with INERT rows: zero catalog rows (zero idle
+    power, so zero energy), no arrivals, MODE_OFF state rows and the
+    dynamics' own ``pad_state`` rows. Returns the padded state."""
+    k = n_arr - prep.n
+    if k == 0:
+        return sim.state
+    prep.tables = tuple(
+        np.concatenate([t, np.zeros((k,) + t.shape[1:], t.dtype)])
+        for t in prep.tables)
+    for f in ("app_sched", "app_choice"):
+        a = getattr(prep, f)
+        setattr(prep, f, np.concatenate(
+            [a, np.zeros((a.shape[0], k), a.dtype)], axis=1))
+    dyn_rows = sim.dynamics.pad_state(k) if sim.dynamics.active else None
+    if sim.dynamics.active and dyn_rows is None:
+        raise ValueError(
+            f"{type(sim.dynamics).__name__} has no pad_state recipe; "
+            "a padded run needs one when n_users is not a multiple of the "
+            "device count (or pick n_users divisible by n_devices)")
+    return pad_state_per_user(sim.state, n_arr, dyn_rows=dyn_rows)
 
 
 def _column(values, dev, dtype=None):
@@ -526,15 +568,25 @@ class _Scan:
     """One batch of sims on one device: the stacked operands and the
     slot step. ``step(state, t)`` advances every config row one slot;
     ``run()`` drives the chunks, drains the push buffer and decodes the
-    rows."""
+    rows. ``n_arr`` (internal): the padded user-axis length; 0 takes
+    ``pad_to_devices(n, D)`` for a run with ``n_devices`` (D devices of
+    ``make_sim_mesh``), else ``n``."""
 
-    def __init__(self, sims, dev):
+    def __init__(self, sims, dev, n_arr: int = 0):
         self.sims = sims
         self.dev = dev
         self.B = len(sims)
-        preps = [_scan_setup(s) for s in sims]
+        cfg0 = sims[0].cfg
+        D = 1
+        if cfg0.n_devices:
+            from ..launch.mesh import make_sim_mesh
+            D = make_sim_mesh(cfg0.n_devices, dev).size
+        preps = [_scan_setup(s, D) for s in sims]
         p0 = preps[0]
         self.n, self.T, self.chunk = p0.n, p0.T, p0.chunk
+        self.n_arr = int(n_arr) or pad_to_devices(self.n, D)
+        self.initial = [_pad_setup(p, s, self.n_arr)
+                        for p, s in zip(preps, sims)]
         self.collect, self.cap, self.tune = p0.collect, p0.cap, p0.tune
         self.overhead, self.statics = p0.overhead, p0.statics
         sim0 = sims[0]
@@ -563,8 +615,21 @@ class _Scan:
 
         self.pol_ops, self.agg_ops, self.dyn_ops = \
             ops("pol_ops"), ops("agg_ops"), ops("dyn_ops")
-        self.ar = torch.arange(self.n, device=dev)
+        self.ar = torch.arange(self.n_arr, device=dev)
         self.ar_f = self.ar.to(_F)
+
+    def pad_users(self, x, fill):
+        """A (..., n) per-user tensor extended to (..., n_arr) with
+        ``fill`` (the identity unpadded)."""
+        k = self.n_arr - self.n
+        if not k:
+            return x
+        return torch.cat([x, x.new_full(x.shape[:-1] + (k,), fill)], -1)
+
+    def _live(self, x):
+        """The live users' columns of a (B, n_arr) tensor, contiguous, so
+        that a sum over them adds what the unpadded run adds."""
+        return x if self.n_arr == self.n else x[:, :self.n].contiguous()
 
     # ------------------------------------------------------------ the slot
     def _gather(self, table, aid):
@@ -583,9 +648,10 @@ class _Scan:
         # device dynamics, first in the slot (its draw precedes the
         # policy's, as on the host engines)
         if self.dyn_active:
-            dv = SimpleNamespace(n=n, device=self.dev, rng_key=rng_key,
-                                 mode=mode, corun=corun, t_d=t_d,
-                                 fp_zero=0.0, consts=self.dyn_ops,
+            dv = SimpleNamespace(n=n, n_arr=self.n_arr,
+                                 pad_users=self.pad_users, device=self.dev,
+                                 rng_key=rng_key, mode=mode, corun=corun,
+                                 t_d=t_d, fp_zero=0.0, consts=self.dyn_ops,
                                  float_dtype=_F, int_dtype=_I)
             dyn, eff = self.dynamics.scan_step(dyn, dv)
             rng_key = dv.rng_key
@@ -634,7 +700,8 @@ class _Scan:
 
         # the policy's decisions
         sv = SimpleNamespace(
-            n=n, T=self.T, t=t, device=self.dev, float_dtype=_F,
+            n=n, n_arr=self.n_arr, pad_users=self.pad_users, T=self.T, t=t,
+            device=self.dev, float_dtype=_F,
             int_dtype=_I, waiting=waiting, has_app=has_app, app=app,
             updates=updates, pcor_g=pcor_g, papp_g=papp_g, tcor_g=tcor_g,
             PT=self.PT, TT=self.TT, PI=self.PI, PS=self.PS,
@@ -747,7 +814,7 @@ class _Scan:
 
     def run(self) -> List[SimResult]:
         B, T, chunk = self.B, self.T, self.chunk
-        initial = [s.state for s in self.sims]
+        initial = self.initial
         state = _state_to_device(initial, self.dev)
         cap = self.cap
         if self.collect:
@@ -771,7 +838,8 @@ class _Scan:
                 if sampled[t]:
                     part.append(torch.cat(
                         [state.Q, state.H,
-                         state.energy.sum(-1, keepdim=True)], dim=1))
+                         self._live(state.energy).sum(-1, keepdim=True)],
+                        dim=1))
             if self.collect:
                 counts = state.events.count[:, 0].tolist()
                 if max(counts) > cap:
@@ -793,9 +861,9 @@ class _Scan:
             t0 = t1
         trace = np.concatenate(samples, axis=1) if samples \
             else np.zeros((B, 0, 3))
-        energy_rows = state.energy.sum(-1).cpu().numpy()
-        hosts = _state_to_host(dataclasses.replace(state, events=None),
-                               initial)
+        energy_rows = self._live(state.energy).sum(-1).cpu().numpy()
+        hosts = [unpad_state_per_user(h, self.n) for h in _state_to_host(
+            dataclasses.replace(state, events=None), initial)]
         at = np.cumsum(sampled) - 1     # a sampled slot's column in trace
         results = []
         for b, sim in enumerate(self.sims):
@@ -805,7 +873,7 @@ class _Scan:
             sim._ran = True
             sim.scan_info = SimpleNamespace(
                 chunk=chunk, capacity=cap, retries=retries, batch=B,
-                tune=self.tune)
+                n_arr=self.n_arr, tune=self.tune)
             updates_total = int(host.updates.sum())
             results.append(SimResult(
                 energy_j=float(energy_rows[b]), updates=updates_total,
@@ -824,7 +892,8 @@ class _Scan:
 # ======================================================================
 def sweep_bucket_key(sim):
     """The bucket a sim shares a batched scan with, or None when it
-    cannot join one: real-ML hooks or a backend, ``engine="loop"``, an
+    cannot join one: real-ML hooks or a backend, ``engine="loop"``, a
+    padded user axis (``n_devices``: the devices are the parallelism), an
     auto-tuned chunk (``jax_chunk=0``, resolved per run), a policy or
     dynamics without a scan hook or with ``supports_vmap`` cleared
     (offline), or a push log under a rule without ``scan_weight``. Sims
@@ -837,7 +906,7 @@ def sweep_bucket_key(sim):
     policy, agg, dynamics = sim.policy, sim.agg, sim.dynamics
     if sim.ml or sim.ml_backend is not None or cfg.engine == "loop":
         return None
-    if cfg.jax_chunk == 0:
+    if cfg.n_devices or cfg.jax_chunk == 0:
         return None
     if not (policy.supports_jax and policy.supports_vmap):
         return None

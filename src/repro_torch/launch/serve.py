@@ -1,6 +1,7 @@
 """Batched serving driver: prefill a batch of prompts, then greedy-decode
 with the KV cache (or the SSM states) — the counterpart of
-``repro/launch/serve.py``.
+``repro/launch/serve.py``, for the dense, MoE and SSM families (the
+hybrid, audio and VLM families raise, ROADMAP Queue 1 item 7).
 
 The prefill and decode steps are the model's own (``models/zoo.py``), run
 eagerly under ``torch.inference_mode()``. The cache's position is a Python

@@ -11,8 +11,14 @@
 ``make_update_step(cfg)`` -> (params, v, grads, lag) -> (params', v', gap)
     The fused-update epilogue alone.
 
-``kernel`` picks how K2 runs (``kernels.fused_update.fused_update_flat``).
-The prefill/decode steps are still to port (ROADMAP Queue 1 item 7).
+``make_prefill_step(cfg)`` -> (params, batch, cache) -> (logits, cache')
+``make_decode_step(cfg)``  -> (params, cache, batch) -> (tokens or logits,
+    cache'): the model's own prefill and decode, without gradients; the
+    decode step returns the greedy argmax (int64) unless ``greedy=False``.
+
+``kernel`` picks how K2 runs (``kernels.fused_update.fused_update_flat``)
+in the train and update steps, and how K3/K4 run (``build_model``) in the
+serving steps.
 """
 from __future__ import annotations
 
@@ -68,3 +74,25 @@ def make_update_step(cfg, *, eta: float = 1e-2, beta: float = 0.9,
                                          beta=beta, lag=lag, kernel=kernel)
 
     return upd_step
+
+
+def make_prefill_step(cfg, *, kernel: str = "auto"):
+    model = build_model(cfg, kernel=kernel)
+
+    @torch.no_grad()
+    def prefill_step(params, batch, cache):
+        return model.prefill(params, batch, cache)
+
+    return prefill_step
+
+
+def make_decode_step(cfg, *, greedy: bool = True, kernel: str = "auto"):
+    model = build_model(cfg, kernel=kernel)
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        logits, new_cache = model.decode_step(params, cache, batch)
+        out = torch.argmax(logits, dim=-1) if greedy else logits
+        return out, new_cache
+
+    return decode_step

@@ -19,8 +19,14 @@ h reads KV head ``h // G``.
   ``_sdpa`` over the cache. Decode (Sq = 1 over the cache) and an explicit
   mask stay on ``_sdpa``; a ``logits_softcap`` is not part of K4's
   contract and raises;
-- ``"chunked"`` and cross-attention (``kv_override``) are still to port
-  (ROADMAP Queue 1 item 7) and raise.
+- ``"chunked"``: ``_sdpa_chunked`` (scores for ``attn_q_block`` query
+  rows at a time, in f32, each block recomputed in the backward pass)
+  for causal attention with ``Sq >= 2 * attn_q_block`` — training, and
+  over the whole cache at ``cache_pos`` — as in the JAX package; shorter
+  queries, decode and an explicit mask stay on ``_sdpa``.
+
+Cross-attention (``kv_override``, the audio family) is still to port
+(ROADMAP Queue 1 item 7) and raises.
 
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) picks how K4 runs.
 K4 has no backward: a flash call that needs a gradient raises on CUDA.
@@ -28,6 +34,7 @@ K4 has no backward: a flash call that needs a gradient raises on CUDA.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .common import apply_rope, dense_init, rms_norm
@@ -96,6 +103,46 @@ def causal_mask(Sq: int, Sk: int, offset: int = 0, device=None):
     return (kj <= qi)[None, None, None, :, :]   # (1,1,1,Sq,Sk) for bkgqs
 
 
+def _sdpa_chunked(q, k, v, cfg, *, causal: bool = True, offset: int = 0):
+    """Blocked attention: the scores of ``attn_q_block`` query rows at a
+    time, peak memory (B, KV, G, bq, Sk) instead of (..., Sq, Sk); q, k and
+    v in f32, the output cast back to q's dtype. ``offset``: the position
+    of query row 0 (the cache position). q: (B, Sq, H, hd); k/v: (B, Sk,
+    KV, hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    bq = min(cfg.attn_q_block, Sq)
+    nb = Sq // bq
+    scale = hd ** -0.5
+    kf, vf = k.float(), v.float()
+    cols = torch.arange(Sk, device=q.device)[None, :]
+
+    def block(qb, qstart):
+        """qb: (B, bq', KV, G, hd) -> (B, bq', KV, G, hd)"""
+        s = torch.einsum("bqkgh,bskh->bkgqs", qb.float(), kf) * scale
+        if cfg.logits_softcap:
+            s = cfg.logits_softcap * torch.tanh(s / cfg.logits_softcap)
+        if causal:
+            rows = offset + qstart + torch.arange(
+                qb.shape[1], device=q.device)[:, None]
+            s = torch.where(cols <= rows, s, torch.finfo(torch.float32).min)
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgqs,bskh->bqkgh", w, vf).to(q.dtype)
+
+    # each block recomputed in the backward pass (the JAX checkpoint):
+    # otherwise every block's (bq, Sk) weights are kept, O(Sq Sk) again
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    qg = q.reshape(B, Sq, KV, G, hd)
+    outs = []
+    for i in range(nb + (Sq > nb * bq)):    # the tail block, if any, last
+        qb = qg[:, i * bq:(i + 1) * bq]
+        outs.append(checkpoint(block, qb, i * bq, use_reentrant=False)
+                    if remat else block(qb, i * bq))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
 def _flash(q, k, v, kernel):
     """K4 on (B, S, heads, hd) activations, as (B, heads, S, hd) views;
     the output comes back in the (B, S, H, hd) layout."""
@@ -118,10 +165,6 @@ def attention(x, p, cfg, positions=None, mask=None, kv_cache=None,
         raise NotImplementedError(
             "cross-attention (kv_override, the audio family) is not ported "
             "yet (ROADMAP Queue 1 item 7)")
-    if cfg.attention_impl == "chunked":
-        raise NotImplementedError(
-            "attention_impl='chunked' is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
     flash = cfg.attention_impl == "flash"
     if flash and cfg.logits_softcap:
         raise NotImplementedError(
@@ -129,6 +172,8 @@ def attention(x, p, cfg, positions=None, mask=None, kv_cache=None,
             "part of K4's contract")
     q, k, v = _project_qkv(x, p, cfg, positions)
     dt = x.dtype
+    chunked = cfg.attention_impl == "chunked" and mask is None and \
+        cfg.causal and q.shape[1] >= 2 * cfg.attn_q_block
     new_cache = None
     if kv_cache is not None:
         S = q.shape[1]
@@ -138,6 +183,10 @@ def attention(x, p, cfg, positions=None, mask=None, kv_cache=None,
         if flash and mask is None and cfg.causal and cache_pos == 0:
             ck, cv = kv_cache["k"][:, :S], kv_cache["v"][:, :S]
             out = _flash(q, ck.to(dt), cv.to(dt), kernel)
+        elif chunked:
+            out = _sdpa_chunked(q, kv_cache["k"].to(dt),
+                                kv_cache["v"].to(dt), cfg, causal=True,
+                                offset=cache_pos)
         else:
             if mask is None:
                 mask = causal_mask(S, kv_cache["k"].shape[1],
@@ -146,6 +195,8 @@ def attention(x, p, cfg, positions=None, mask=None, kv_cache=None,
                         cfg)
     elif flash and mask is None and cfg.causal:
         out = _flash(q, k, v, kernel)
+    elif chunked:
+        out = _sdpa_chunked(q, k, v, cfg, causal=True)
     else:
         if mask is None and cfg.causal:
             mask = causal_mask(q.shape[1], k.shape[1], device=x.device)

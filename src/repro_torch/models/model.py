@@ -1,6 +1,6 @@
 """Model assembly: the transformer and Mamba2 blocks, their layer stacks,
 the LM head and the loss — the counterpart of ``repro/models/model.py``
-for the dense and SSM families.
+for the dense, MoE and SSM families.
 
 Parameters are a tree (nested dicts) of tensors as in the JAX package;
 ``layers`` leaves are stacked with a leading L dimension. A stack is a
@@ -13,7 +13,7 @@ carry it through the scan with a donated dynamic-update-slice).
 
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) reaches K4 (the
 flash route of ``attention``) and K3 (``ssm.ssd_chunked``). The hybrid
-stack and the MoE block are still to port (ROADMAP Queue 1 item 7).
+stack is still to port (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from ..kernels.fused_update.ops import tree_leaves, tree_map, tree_unflatten
 from .attention import attention, init_attention
 from .common import apply_norm, norm_params
 from .config import ModelConfig
-from .moe import init_mlp, mlp
+from .moe import init_mlp, init_moe, mlp, moe
 from .ssm import init_ssm, ssm_block, ssm_decode_step
 
 
@@ -39,35 +39,34 @@ class Model(NamedTuple):
     init_cache: Callable[..., Any]
 
 
-def _dense_only(cfg):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
-
-
 # ------------------------------------------------------------------ blocks
 def transformer_block(x, p, cfg, positions=None, mask=None, kv_cache=None,
                       cache_pos=None, *, kernel="auto"):
-    """Pre-norm residual block of the dense family. Returns (x,
-    new_kv_cache); the JAX block's third result, the MoE auxiliary loss,
-    is 0 for the dense family and comes with the MoE port."""
-    _dense_only(cfg)
+    """Pre-norm residual block of the dense and MoE families. Returns (x,
+    new_kv_cache, aux): the MoE auxiliary loss, or the number 0.0 for the
+    dense MLP (no device op)."""
     h = apply_norm(x, p["ln1"], cfg)
     a, new_cache = attention(h, p["attn"], cfg, positions=positions,
                              mask=mask, kv_cache=kv_cache,
                              cache_pos=cache_pos, kernel=kernel)
     x = x + a
     h = apply_norm(x, p["ln2"], cfg)
-    return x + mlp(h, p["mlp"], cfg), new_cache
+    if cfg.family == "moe":
+        m, aux = moe(h, p["moe"], cfg)
+    else:
+        m, aux = mlp(h, p["mlp"], cfg), 0.0
+    return x + m, new_cache, aux
 
 
 def init_transformer_block(generator, cfg):
-    _dense_only(cfg)
-    return {"ln1": norm_params(cfg.d_model, cfg),
-            "attn": init_attention(generator, cfg),
-            "ln2": norm_params(cfg.d_model, cfg),
-            "mlp": init_mlp(generator, cfg)}
+    p = {"ln1": norm_params(cfg.d_model, cfg),
+         "attn": init_attention(generator, cfg),
+         "ln2": norm_params(cfg.d_model, cfg)}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(generator, cfg)
+    else:
+        p["mlp"] = init_mlp(generator, cfg)
+    return p
 
 
 def mamba_layer(x, p, cfg, state=None, *, kernel="auto"):
@@ -106,15 +105,18 @@ def dense_stack(x, layers_p, cfg, positions=None, cache=None,
                 cache_pos=None, *, kernel="auto"):
     """The layer loop over the stacked parameters. ``cache``: None, or
     {"k", "v"} of (L, B, Smax, KV, hd), written in place. Returns (x,
-    cache)."""
+    cache, the layers' summed MoE auxiliary loss (0.0 for the dense
+    family))."""
+    aux_sum = 0.0
     for p, kv in _layers(layers_p, cache):
         if kv is None and _remat(cfg):
-            x, _ = checkpoint(transformer_block, x, p, cfg, positions,
-                              kernel=kernel, use_reentrant=False)
+            x, _, aux = checkpoint(transformer_block, x, p, cfg, positions,
+                                   kernel=kernel, use_reentrant=False)
         else:
-            x, _ = transformer_block(x, p, cfg, positions, kv_cache=kv,
-                                     cache_pos=cache_pos, kernel=kernel)
-    return x, cache
+            x, _, aux = transformer_block(x, p, cfg, positions, kv_cache=kv,
+                                          cache_pos=cache_pos, kernel=kernel)
+        aux_sum = aux_sum + aux
+    return x, cache, aux_sum
 
 
 def ssm_stack(x, layers_p, cfg, states=None, *, kernel="auto"):

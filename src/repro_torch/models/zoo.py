@@ -1,5 +1,6 @@
 """``build_model(cfg, kernel=...) -> Model`` — the counterpart of
-``repro/models/zoo.py`` for the dense decoder-only LM and the pure SSM LM.
+``repro/models/zoo.py`` for the decoder-only LM (the dense and MoE
+families) and the pure SSM LM.
 
 Every family exposes the JAX package's functional API:
 
@@ -9,18 +10,21 @@ Every family exposes the JAX package's functional API:
     model.prefill(params, batch, cache)      -> (last_logits, cache)
     model.decode_step(params, cache, batch)  -> (logits, cache)
 
-``init`` draws the parameters on the CPU from a ``torch.Generator`` and
-moves them to ``device``. The embedding is looked up in f32 and cast to
-``cfg.dtype``; with tied embeddings the same leaf is the LM head. The
-cache's ``pos`` is a Python int (JAX carries an int32 array): the decode
-loop then builds its positions and masks on the device without reading
-anything back, and prefill/decode write the cache tensors in place.
+``init`` draws the parameters from a ``torch.Generator`` on its device
+(the CPU unless a CUDA generator is given) and moves them to ``device``.
+The embedding is looked up in f32 and cast to ``cfg.dtype``; with tied
+embeddings the same leaf is the LM head. The cache's ``pos`` is a Python
+int (JAX carries an int32 array): the decode loop then builds its
+positions and masks on the device without reading anything back, and
+prefill/decode write the cache tensors in place.
 
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) picks how K4 (the
 ``attention_impl="flash"`` route) and K3 (the SSD intra-chunk step) run.
-The MoE, hybrid, audio and VLM families are still to port (ROADMAP Queue 1
-item 7). ``params_from_jax`` carries a JAX parameter tree across (the two
-libraries draw different numbers from one seed).
+The MoE family's loss is ``loss + 0.01 * aux`` with ``{"loss",
+"aux_loss"}`` in its metrics, as in JAX. The hybrid, audio and VLM
+families are still to port (ROADMAP Queue 1 item 7). ``params_from_jax``
+carries a JAX parameter tree across (the two libraries draw different
+numbers from one seed).
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ def _kv_cache_zeros(cfg, n_layers, batch, max_seq, device):
 
 # ============================================================ decoder-only LM
 def build_lm(cfg: ModelConfig, kernel: str = "auto") -> Model:
-    """The dense decoder-only LM."""
+    """The decoder-only LM of the dense and MoE families."""
     if cfg.num_vision_tokens:
         raise NotImplementedError(
             "vision tokens (the VLM family) are not ported yet (ROADMAP "
@@ -77,11 +81,12 @@ def build_lm(cfg: ModelConfig, kernel: str = "auto") -> Model:
     def loss(params, batch):
         x = _embed_tokens(params, batch["tokens"], cfg)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = dense_stack(x, params["layers"], cfg, positions=positions,
-                           kernel=kernel)
+        x, _, aux = dense_stack(x, params["layers"], cfg,
+                                positions=positions, kernel=kernel)
         l = cross_entropy(_lm_logits(x, params, cfg), batch["labels"])
-        # the dense family has no MoE auxiliary loss: 0.01 * aux == 0
-        return l, {"loss": l, "aux_loss": torch.zeros((), device=l.device)}
+        if cfg.family != "moe":     # no auxiliary loss: 0.01 * 0 adds 0
+            return l, {"loss": l, "aux_loss": torch.zeros((), device=l.device)}
+        return l + 0.01 * aux, {"loss": l, "aux_loss": aux}
 
     def init_cache(batch, max_seq, device="cuda"):
         dev = resolve_device(device)
@@ -92,9 +97,9 @@ def build_lm(cfg: ModelConfig, kernel: str = "auto") -> Model:
     def prefill(params, batch, cache):
         x = _embed_tokens(params, batch["tokens"], cfg)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, kv = dense_stack(x, params["layers"], cfg, positions=positions,
-                            cache=cache["layers"], cache_pos=0,
-                            kernel=kernel)
+        x, kv, _ = dense_stack(x, params["layers"], cfg,
+                               positions=positions, cache=cache["layers"],
+                               cache_pos=0, kernel=kernel)
         logits = _lm_logits(x[:, -1:, :], params, cfg)
         return logits, {"layers": kv, "pos": x.shape[1]}
 
@@ -102,9 +107,9 @@ def build_lm(cfg: ModelConfig, kernel: str = "auto") -> Model:
         pos = cache["pos"]
         x = _embed_tokens(params, batch["tokens"], cfg)          # (B,1,D)
         positions = torch.arange(pos, pos + x.shape[1], device=x.device)
-        x, kv = dense_stack(x, params["layers"], cfg, positions=positions,
-                            cache=cache["layers"], cache_pos=pos,
-                            kernel=kernel)
+        x, kv, _ = dense_stack(x, params["layers"], cfg,
+                               positions=positions, cache=cache["layers"],
+                               cache_pos=pos, kernel=kernel)
         return _lm_logits(x, params, cfg), {"layers": kv,
                                             "pos": pos + x.shape[1]}
 
@@ -148,7 +153,7 @@ def build_ssm_lm(cfg: ModelConfig, kernel: str = "auto") -> Model:
                  decode_step, init_cache)
 
 
-FAMILIES = {"dense": build_lm, "ssm": build_ssm_lm}
+FAMILIES = {"dense": build_lm, "moe": build_lm, "ssm": build_ssm_lm}
 
 
 def build_model(cfg: ModelConfig, kernel: str = "auto") -> Model:

@@ -41,7 +41,9 @@ class ShardSpec:
         if mesh is not None:
             raise NotImplementedError(
                 "a serving mesh (shards over several devices) is not ported: "
-                "every shard lives on the one card (ROADMAP Queue 1 item 9)")
+                "every shard lives on the one card, and a multi-GPU mesh "
+                "waits for hardware that can verify it (ROADMAP Queue 1 "
+                "item 9)")
         leaves = tree_leaves(params)
         if not leaves:
             raise ValueError("cannot shard an empty parameter pytree")

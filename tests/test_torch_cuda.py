@@ -241,6 +241,10 @@ def test_k2_leaves_its_inputs_and_counts_launches(cuda_device):
 # ---------------------------------------------------------------- K4, K3
 FLASH_SHAPES = ((1, 4, 4, 256, 64), (2, 8, 2, 256, 128), (1, 4, 2, 384, 64),
                 (1, 2, 1, 512, 32), (1, 4, 2, 200, 64), (2, 4, 2, 37, 16))
+# the serving prefill (8 x 512 tokens) of granite-moe-1b-a400m, qwen2.5-3b
+# and phi4-mini-3.8b
+ZOO_FLASH_SHAPES = ((8, 16, 8, 512, 64), (8, 16, 2, 512, 128),
+                    (8, 24, 8, 512, 128))
 SSD_SHAPES = ((2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
               (2, 96, 3, 8, 24, 32), (1, 64, 8, 64, 128, 16))
 
@@ -258,7 +262,7 @@ def _assert_close(a, b, tol, scaled=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", ((torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)))
-@pytest.mark.parametrize("B,H,KV,S,d", FLASH_SHAPES)
+@pytest.mark.parametrize("B,H,KV,S,d", FLASH_SHAPES + ZOO_FLASH_SHAPES)
 def test_k4_cuda_kernel_matches_plain(cuda_device, B, H, KV, S, d, dtype,
                                       tol):
     rng = np.random.default_rng(B * H * S)
@@ -849,3 +853,69 @@ def test_scan_engine_on_the_card_matches_numpy_engine(cuda_device, policy):
         np.testing.assert_allclose(res.push_log.field(col),
                                    ref.push_log.field(col), rtol=1e-9,
                                    atol=1e-15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ("online", "eps_greedy"))
+@pytest.mark.parametrize("dynamics", ("none", "markov"))
+def test_scan_engine_padded_users_on_the_card_bitwise(cuda_device, policy,
+                                                      dynamics):
+    """The scan engine on the card with its user axis padded past n (the
+    internal ``n_arr``) and with ``n_devices=1`` equals the plain run bit
+    for bit: push log, traces, every live user's final state."""
+    import dataclasses
+    from repro_torch.core import FederatedSim, SimConfig, vector_engine
+    cfg = SimConfig(policy=policy, dynamics=dynamics, n_users=10,
+                    horizon_s=600, app_arrival_p=0.01, seed=11, V=2000.0,
+                    L_b=2.0, engine="jax", jax_chunk=100)
+    runs = []
+    for n_arr, over in ((0, {}), (13, {}), (0, {"n_devices": 1})):
+        sim = FederatedSim(dataclasses.replace(cfg, **over), device="cuda")
+        res = vector_engine._Scan([sim], cuda_device, n_arr=n_arr).run()[0]
+        runs.append((res, sim))
+    (ref, rsim), *rest = runs
+    assert ref.updates > 0
+    for res, sim in rest:
+        assert list(res.push_log) == list(ref.push_log)
+        assert (res.energy_j, res.mean_Q, res.mean_H, res.drops) == \
+            (ref.energy_j, ref.mean_Q, ref.mean_H, ref.drops)
+        for f in ("trace_Q", "trace_H", "trace_energy"):
+            np.testing.assert_array_equal(getattr(res, f), getattr(ref, f))
+        for f in ("mode", "energy", "updates", "idle_gap", "pulled_at"):
+            np.testing.assert_array_equal(getattr(sim.state, f),
+                                          getattr(rsim.state, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("granite-moe-1b-a400m",
+                                  "qwen3-moe-30b-a3b"))
+def test_moe_smoke_model_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The MoE smoke model in f32 on the card (the flash route: K4's
+    CUDA-core form) against the same parameters on the CPU (K4's plain
+    version): a 32-token prefill (the sorted dispatch) and two decode
+    steps (the dense combine), logits at 1e-4 x max(1, max|ref|)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.fused_update.ops import tree_map
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              attention_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev), params)
+        with torch.inference_mode():
+            cache = model.init_cache(2, 35, device=dev)
+            logits, cache = model.prefill(p, {"tokens": tokens.to(dev)},
+                                          cache)
+            steps = [logits]
+            for i in range(2):      # the same tokens on both devices
+                logits, cache = model.decode_step(
+                    p, cache, {"tokens": tokens[:, i:i + 1].to(dev)})
+                steps.append(logits)
+        out[str(dev)] = [t.cpu() for t in steps]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _assert_close(a, b, 1e-4, scaled=True)

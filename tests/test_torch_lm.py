@@ -151,19 +151,22 @@ def test_bf16_loss_matches():
 
 
 def test_unported_model_paths_raise():
+    """The audio, hybrid and VLM families are still to port; the MoE
+    family and chunked attention build (tests/test_torch_moe.py,
+    tests/test_torch_lm_zoo.py)."""
     cfg = get_smoke_config(ARCH)
     for family in (dict(family="audio", is_encoder_decoder=True),
                    dict(family="hybrid", ssm_state=16, hybrid_period=2,
-                        num_shared_blocks=1)):
+                        num_shared_blocks=1),
+                   dict(num_vision_tokens=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **family))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, family="moe", num_experts=4))
+    build_model(dataclasses.replace(cfg, family="moe", num_experts=4))
     chunked = dataclasses.replace(cfg, attention_impl="chunked")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(chunked).loss(
-            params_from_jax(_jax_params(cfg), "cpu"),
-            {k: torch.from_numpy(v) for k, v in _batch(cfg).items()})
+    loss, _ = build_model(chunked).loss(
+        params_from_jax(_jax_params(cfg), "cpu"),
+        {k: torch.from_numpy(v) for k, v in _batch(cfg).items()})
+    assert np.isfinite(float(loss.detach()))
 
 
 def test_default_device_init_without_cuda_raises():

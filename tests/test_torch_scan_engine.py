@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 import repro.core as J  # noqa: E402
 from repro.core import autotune as j_autotune  # noqa: E402
 from repro.core import staleness as j_staleness  # noqa: E402
+from repro.core import vector_engine as jve  # noqa: E402
 from repro.core.lyapunov import OnlineScheduler as JSched  # noqa: E402
 import repro_torch.core as P  # noqa: E402
 from repro_torch.core import autotune, prng, staleness  # noqa: E402
@@ -49,6 +50,23 @@ def _x64_and_threefry():
     yield
     prng.set_partitionable(prev_mode)
     jax.config.update("jax_enable_x64", prev_x64)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_chunk_cache():
+    """The JAX package's jitted-chunk cache (contents and LRU order), its
+    counters and its cap put back as this file found them: reference
+    tests that later share the worker count its hits and misses exactly.
+    Inside the file the JAX runs share their executables."""
+    cache = list(jve._JAX_FN_CACHE.items())
+    stats = dict(jve._JAX_CACHE_STATS)
+    cap = jve._JAX_FN_CACHE_MAX
+    yield
+    jve._JAX_FN_CACHE.clear()
+    jve._JAX_FN_CACHE.update(cache)
+    jve._JAX_CACHE_STATS.clear()
+    jve._JAX_CACHE_STATS.update(stats)
+    jve._JAX_FN_CACHE_MAX = cap
 
 
 def digest(log) -> str:

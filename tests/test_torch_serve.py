@@ -267,7 +267,6 @@ def test_unported_families_raise():
     for other in (dict(family="hybrid", ssm_state=16, hybrid_period=2,
                        num_shared_blocks=1),
                   dict(family="audio", is_encoder_decoder=True),
-                  dict(family="moe", num_experts=4),
                   dict(num_vision_tokens=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **other))

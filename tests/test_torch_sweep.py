@@ -35,6 +35,23 @@ def _x64_and_threefry():
     jax.config.update("jax_enable_x64", prev_x64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_chunk_cache():
+    """The JAX package's jitted-chunk cache (contents and LRU order), its
+    counters and its cap put back as this file found them: reference
+    tests that later share the worker count its hits and misses exactly.
+    Inside the file the JAX runs share their executables."""
+    cache = list(jve._JAX_FN_CACHE.items())
+    stats = dict(jve._JAX_CACHE_STATS)
+    cap = jve._JAX_FN_CACHE_MAX
+    yield
+    jve._JAX_FN_CACHE.clear()
+    jve._JAX_FN_CACHE.update(cache)
+    jve._JAX_CACHE_STATS.clear()
+    jve._JAX_CACHE_STATS.update(stats)
+    jve._JAX_FN_CACHE_MAX = cap
+
+
 def digest(log) -> str:
     return hashlib.sha256(";".join(
         f'{e["t"]},{e["user"]},{e["lag"]},{int(e["corun"])}'
