@@ -42,20 +42,25 @@ on every layer's prefill) and Mamba2-370m (K3 on every layer's prefill)
 at full width through ``launch.serve.BatchedServer``, compares each
 kernel route's prefill logits with the plain route's, and profiles one
 prefill and a few decode steps; then the LM zoo's newer
-configurations: K4 at their three new shapes against its plain version,
-granite-moe-1b-a400m (the MoE family: sorted dispatch at prefill, the
-dense combine at decode) served at full width with K4 and held to the
-einsum route (in bf16 at the Qwen3 phase's bound, in f32 token for
-token), qwen2.5-3b (with its chunked-attention prefill held to the einsum
-route) and phi4-mini-3.8b at full width, and internlm2-20b and
-qwen3-moe-30b-a3b at their published widths with their depth cut to fit
-the card. The scan phase ends with the padded user axis
+configurations: K4 at their shapes (head dim 80, the audio family's
+non-causal 1,500-frame encoder and its 512 x 1,500 cross-attention, GQA
+64 over 8 at 768 positions among them) and K3 at zamba2's against their
+plain versions, granite-moe-1b-a400m (the MoE family: sorted dispatch at
+prefill, the dense combine at decode) served at full width with K4 and
+held to the einsum route (in bf16 at the Qwen3 phase's bound, in f32
+token for token), qwen2.5-3b (with its chunked-attention prefill held to
+the einsum route) and phi4-mini-3.8b at full width, zamba2-2.7b (the
+hybrid family, K3 and K4) and whisper-large-v3 (the audio family) at
+full width, each held to its einsum route in f32 token for token, and
+internlm2-20b, qwen3-moe-30b-a3b and internvl2-76b (the VLM family) at
+their published widths with their depth cut to fit the card. The scan
+phase ends with the padded user axis
 (``SimConfig.n_devices``): the fleet run with ``n_devices=1`` and padded
 past n, each equal to the plain run bit for bit.
 
     python3 chip_smoke.py
     python3 chip_smoke.py scan      # the scan-engine phase alone
-    python3 chip_smoke.py zoo       # K4's newer shapes and the zoo phase
+    python3 chip_smoke.py zoo       # K4's and K3's newer shapes, the zoo phase
 
 Needs a CUDA device and the CUDA toolkit (exits non-zero without a
 device) and nothing but this repository's ``src/``. Every phase raises on
@@ -150,7 +155,7 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # ragged S, and Qwen3-0.6B's serving prefill (batch 8 x 512 tokens)
 K4_SHAPES = ((1, 4, 4, 256, 64), (2, 8, 2, 256, 128), (1, 4, 2, 384, 64),
              (1, 2, 1, 512, 32), (2, 4, 2, 200, 64))
-K4_SERVE = (8, 16, 8, 512, 128)
+K4_SERVE = (8, 16, 8, 512, 512, 128, True)
 # K3: TestSSDScan shapes (B, S, nh, ph, s, chunk); Mamba2-370m's serving
 # prefill folds batch 8 x 32 heads into BH = 256 rows of 512 tokens
 K3_SHAPES = ((2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
@@ -164,15 +169,29 @@ FIRST_FORM_PREFILL_MS = {"qwen3-0.6b": 48.58, "mamba2-370m": 102.34}
 # serving: 8 prompts of 512 tokens, 32 new tokens each, on the card
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 # the LM zoo's newer configurations at the serving prefill (batch 8 x
-# 512 tokens, bf16), K4's shape (B, H, KV, S, d) for each: granite's head
-# dim 64 (16 heads over 8 KV heads), qwen2.5-3b's GQA ratio 8, phi4-mini's
-# ratio 3
-K4_ZOO = {"granite-moe-1b-a400m": (8, 16, 8, 512, 64),
-          "qwen2.5-3b": (8, 16, 2, 512, 128),
-          "phi4-mini-3.8b": (8, 24, 8, 512, 128)}
-# the two configurations whose f32 weights exceed one card at full depth
-# (79.4 and 122.1 GB): layers kept, at their published widths
-ZOO_CUT = {"internlm2-20b": 24, "qwen3-moe-30b-a3b": 16}
+# 512 tokens, bf16), K4's shape (B, H, KV, Sq, Sk, d, causal) for each:
+# granite's head dim 64 (16 heads over 8 KV heads), qwen2.5-3b's GQA ratio
+# 8, phi4-mini's ratio 3
+K4_ZOO = {"granite-moe-1b-a400m": (8, 16, 8, 512, 512, 64, True),
+          "qwen2.5-3b": (8, 16, 2, 512, 512, 128, True),
+          "phi4-mini-3.8b": (8, 24, 8, 512, 512, 128, True)}
+# the rest of the zoo at the serving prefill, K4's shape (B, H, KV, Sq, Sk,
+# d, causal) for each route: zamba2's shared blocks at head dim 80,
+# whisper's non-causal encoder over 1,500 frames, its cross-attention (512
+# queries over 1,500 frames) and its causal decoder, internvl2's GQA 8 over
+# 256 vision + 512 text positions
+K4_NEW = {"zamba2-2.7b": (8, 32, 32, 512, 512, 80, True),
+          "whisper-large-v3 encoder": (8, 20, 20, 1500, 1500, 64, False),
+          "whisper-large-v3 cross": (8, 20, 20, 512, 1500, 64, False),
+          "whisper-large-v3 decoder": (8, 20, 20, 512, 512, 64, True),
+          "internvl2-76b": (8, 64, 8, 768, 768, 128, True)}
+# K3 at zamba2's Mamba2 layers: batch 8 x 80 heads of one group, state 64
+# (the bf16 form's SP = 64 instantiation)
+K3_ZAMBA = (8, 512, 80, 64, 64, 256)    # batch, S, heads, ph, s, chunk
+# the configurations whose f32 weights exceed one card at full depth
+# (79.4, 122.1 and 282.2 GB): layers kept, at their published widths
+ZOO_CUT = {"internlm2-20b": 24, "qwen3-moe-30b-a3b": 16,
+           "internvl2-76b": 16}
 # chunked attention's q-block for qwen2.5-3b's chunked prefill: two blocks
 # of 192 rows and a tail of 128 over 512 tokens (the default 512 would
 # leave a 512-token prefill on the einsum route)
@@ -2025,54 +2044,74 @@ def phase_k4(flash_attention):
     it)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     max_err = 0.0
-    for B, H, KV, S, d in K4_SHAPES + (K4_SERVE,) + tuple(K4_ZOO.values()):
+    shapes = [(B, H, KV, S, S, d) for B, H, KV, S, d in K4_SHAPES]
+    shapes += [s[:6] for s in (K4_SERVE, *K4_ZOO.values())]
+    for B, H, KV, Sq, Sk, d in shapes:
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            q = randn((B, H, S, d), gen, dtype)
-            k, v = (randn((B, KV, S, d), gen, dtype) for _ in "kv")
+            q = randn((B, H, Sq, d), gen, dtype)
+            k, v = (randn((B, KV, Sk, d), gen, dtype) for _ in "kv")
             for causal in (True, False):
                 out = flash_attention(q, k, v, causal=causal, kernel="cuda")
                 ref = flash_attention(q, k, v, causal=causal,
                                       kernel="reference")
                 err, ok = max_violation(out.float(), ref.float(), tol, tol)
-                assert ok and out.dtype == dtype, (B, H, KV, S, d, dtype,
-                                                   causal, err)
+                assert ok and out.dtype == dtype, (B, H, KV, Sq, Sk, d,
+                                                   dtype, causal, err)
                 max_err = max(max_err, err)
-            print(f"K4 {(B, H, KV, S, d)} {str(dtype)[6:]}: causal and "
+            print(f"K4 {(B, H, KV, Sq, Sk, d)} {str(dtype)[6:]}: causal and "
                   f"full match the plain version at {tol} (max abs err "
                   f"{err!r} full)", flush=True)
+    for name, (B, H, KV, Sq, Sk, d, causal) in K4_NEW.items():
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q = randn((B, H, Sq, d), gen, dtype)
+            k, v = (randn((B, KV, Sk, d), gen, dtype) for _ in "kv")
+            out = flash_attention(q, k, v, causal=causal, kernel="cuda")
+            ref = flash_attention(q, k, v, causal=causal, kernel="reference")
+            err, ok = max_violation(out.float(), ref.float(), tol, tol)
+            assert ok and out.dtype == dtype, (name, dtype, err)
+            max_err = max(max_err, err)
+            print(f"K4 {name} {(B, H, KV, Sq, Sk, d)} "
+                  f"{'causal' if causal else 'full'} {str(dtype)[6:]}: "
+                  f"matches the plain version at {tol} (max abs err "
+                  f"{err!r})", flush=True)
+            del q, k, v, out, ref
     ms, plain, bound, by, sdpa, _ = k4_times(flash_attention, K4_SERVE,
                                              gen, "serving shape")
     return max_err, (ms, plain, bound, by, sdpa)
 
 
 def k4_times(flash_attention, shape, gen, label):
-    """K4 at ``shape`` (B, H, KV, S, d) in bf16, causal, on fresh inputs:
-    the kernel against its plain version at the bf16 bound (2e-2), then
-    times by CUDA events: the kernel, the plain version, torch's SDPA (one
-    call computing the same function; the port never calls it), and the
-    bound (the larger of the bytes at the HBM rate and the FLOPs of j <= i
-    at the bf16 tensor-core peak). Returns (ms, plain ms, bound ms, bound
-    by, SDPA ms, max abs err)."""
+    """K4 at ``shape`` (B, H, KV, Sq, Sk, d, causal) in bf16 on fresh inputs: the kernel against its plain version
+    at the bf16 bound (2e-2), then times by CUDA events: the kernel, the
+    plain version, torch's SDPA (one call computing the same function; the
+    port never calls it), and the bound (the larger of the bytes at the HBM
+    rate and the FLOPs of the scores it computes, j <= i where causal, at
+    the bf16 tensor-core peak). Returns (ms, plain ms, bound ms, bound by,
+    SDPA ms, max abs err)."""
     import torch.nn.functional as F
-    B, H, KV, S, d = shape
-    q = randn((B, H, S, d), gen, torch.bfloat16)
-    k, v = (randn((B, KV, S, d), gen, torch.bfloat16) for _ in "kv")
-    out = flash_attention(q, k, v, causal=True, kernel="cuda")
-    ref = flash_attention(q, k, v, causal=True, kernel="reference")
+    B, H, KV, Sq, Sk, d, causal = shape
+    q = randn((B, H, Sq, d), gen, torch.bfloat16)
+    k, v = (randn((B, KV, Sk, d), gen, torch.bfloat16) for _ in "kv")
+    out = flash_attention(q, k, v, causal=causal, kernel="cuda")
+    ref = flash_attention(q, k, v, causal=causal, kernel="reference")
     err, ok = max_violation(out.float(), ref.float(), 2e-2, 2e-2)
     assert ok and out.dtype == torch.bfloat16, (shape, err)
-    ms = time_ms(lambda: flash_attention(q, k, v, kernel="cuda"), 50)
-    plain = time_ms(lambda: flash_attention(q, k, v, kernel="reference"), 10)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                         kernel="cuda"), 50)
+    plain = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                            kernel="reference"), 10)
     sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 50)
+        q, k, v, is_causal=causal, enable_gqa=True), 50)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, o, k, v
-    flops = 4 * B * H * d * S * (S + 1) // 2     # QK^T and PV, j <= i only
+    # QK^T and PV: j <= i only where causal
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    flops = 4 * B * H * d * pairs
     bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
-    print(f"K4 {label} {shape} bf16 causal: equals the plain version at "
-          f"2e-2 (max abs err {err!r}); kernel {ms:.6f} ms (the first, "
-          f"CUDA-core form at the Qwen3 serving shape: "
-          f"{FIRST_FORM_MS['K4']} ms), plain {plain:.6f} ms, SDPA "
+    print(f"K4 {label} {shape[:6]} bf16 {'causal' if causal else 'full'}: "
+          f"equals the plain version at 2e-2 (max abs err {err!r}); kernel "
+          f"{ms:.6f} ms (the first, CUDA-core form at the Qwen3 serving "
+          f"shape: {FIRST_FORM_MS['K4']} ms), plain {plain:.6f} ms, SDPA "
           f"{sdpa:.6f} ms, bound {bound:.6f} ms by {by} ({nbytes} B at 3.35 "
           f"TB/s; {flops} FLOP take {flops / BF16_FLOPS * 1e3:.6f} ms at "
           f"the bf16 tensor-core peak, {flops / F32_FLOPS * 1e3:.6f} ms on "
@@ -2081,12 +2120,14 @@ def k4_times(flash_attention, shape, gen, label):
 
 
 def phase_k4_zoo(flash_attention):
-    """K4 at the three shapes the newer configurations bring (``K4_ZOO``),
-    each against its plain version and timed. Returns {arch: (ms, plain
-    ms, bound ms, bound by, SDPA ms, max abs err)}."""
+    """K4 at the shapes the newer configurations bring (``K4_ZOO`` and
+    ``K4_NEW``), each against its plain version and timed. Returns {name:
+    (ms, plain ms, bound ms, bound by, SDPA ms, max abs err)}."""
     gen = torch.Generator(device="cuda").manual_seed(24)
-    return {arch: k4_times(flash_attention, shape, gen, arch)
-            for arch, shape in K4_ZOO.items()}
+    out = {name: k4_times(flash_attention, shape, gen, name)
+           for name, shape in {**K4_ZOO, **K4_NEW}.items()}
+    torch.cuda.empty_cache()
+    return out
 
 
 def k3_fold(X, dtv, A, Bh, Ch):
@@ -2129,11 +2170,11 @@ def phase_k3(ssd, ssm_model):
     (f32 sums in another order): the TestSSDScan shapes, an init_state
     continuation and an S that is no chunk multiple through the model's
     padded ssd_chunked. bf16 (wgmma fed by TMA) at the TestSSDScan shapes
-    with one group and the serving shape (batch 8 x 32 heads of one group)
-    on the model's (B, S, heads, .) views: against the rounding-matched
-    plain version and the f32 one (``k3_bf16_check``), with its times
-    beside both interfaces' bounds. No single PyTorch call computes K3's
-    function."""
+    with one group, then Mamba2-370m's serving shape (batch 8 x 32 heads
+    of one group, state 128) and zamba2-2.7b's (batch 8 x 80 heads, state
+    64) on the model's (B, S, heads, .) views (``k3_times``). Returns (max
+    abs err, {label: (ms, plain ms, bound ms, bound by, None, max abs
+    err)})."""
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def inputs(B, S, nh, ph, s, dtype=torch.float32, g=None):
@@ -2188,14 +2229,31 @@ def phase_k3(ssd, ssm_model):
     print("K3: init_state continuation and the padded model ssd_chunked "
           "(S=300, chunk 256) match at 1e-4", flush=True)
 
-    B, S, nh, ph, s, Q = K3_SERVE
+    times = {}
+    for label, shape in (("serving shape", K3_SERVE),
+                         ("zamba2-2.7b", K3_ZAMBA)):
+        ms, plain, bound, by, err, ratio = k3_times(ssd, shape, gen, label)
+        max_err, max_ratio = max(max_err, err), max(max_ratio, ratio)
+        times[label] = (ms, plain, bound, by, None, err)
+    torch.cuda.empty_cache()
+    return max_err, times
+
+
+def k3_times(ssd, shape, gen, label):
+    """The bf16 K3 at ``shape`` (batch, S, heads, ph, s, chunk), one group,
+    on the model's (B, S, heads, .) views: against the rounding-matched and
+    the f32 plain versions (``k3_bf16_check``), then timed by CUDA events
+    beside both interfaces' bounds. No single PyTorch call computes K3's
+    function. Returns (ms, plain ms, bound ms, bound by, max abs err,
+    ratio to the bf16 bound)."""
+    B, S, nh, ph, s, Q = shape
     X = randn((B, S, nh, ph), gen, torch.bfloat16)
     dtv = torch.nn.functional.softplus(randn((B, S, nh), gen) - 4.0)
     A = -torch.linspace(1.0, 16.0, nh, device="cuda")
     Bg, Cg = (randn((B, S, 1, s), gen, torch.bfloat16, 0.5) for _ in "BC")
-    args = views(X, dtv, A, Bg, Cg)
+    args = (X.movedim(2, 1), dtv.movedim(2, 1), A, Bg.movedim(2, 1),
+            Cg.movedim(2, 1))
     err, ratio, got = k3_bf16_check(ssd, args, Q)
-    max_err, max_ratio = max(max_err, err), max(max_ratio, ratio)
     ms = time_ms(lambda: ssd.ssd_intra_chunk_cuda(*args, chunk=Q), 50)
     plain = time_ms(lambda: ssd.ssd_intra_chunk_ref(*args, chunk=Q), 10)
     nc = S // Q
@@ -2208,19 +2266,19 @@ def phase_k3(ssd, ssm_model):
         + (B - 1) * A.numel() * 4
     flops = B * nh * nc * (2 * Q * Q * s + 2 * Q * Q * ph + 2 * Q * s * ph)
     bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
-    print(f"K3 serving shape (batch, S, heads, ph, s, Q) = {K3_SERVE}, one "
-          f"group, bf16: max abs err {err!r} against the rounded plain "
-          f"version, |kernel - f32| at {ratio:.3f} of the bf16 bound; kernel "
-          f"{ms:.6f} ms (the first, CUDA-core form: "
-          f"{FIRST_FORM_MS['K3']} ms), "
-          f"plain {plain:.6f} ms, bound {bound:.6f} ms ({nbytes} B at 3.35 "
-          f"TB/s with B/C read once per group; the per-head interface "
-          f"{head_bytes} B, {head_bytes / HBM_BPS * 1e3:.6f} ms; {flops} FLOP "
-          f"as the TPU kernel counts them take "
-          f"{flops / BF16_FLOPS * 1e3:.6f} ms at the bf16 tensor-core peak); "
-          f"no single PyTorch call computes it", flush=True)
-    return max_err, (ms, plain, bound, "bytes" if nbytes / HBM_BPS >=
-                     flops / BF16_FLOPS else "operations", None)
+    print(f"K3 {label} (batch, S, heads, ph, s, Q) = {shape}, one group, "
+          f"bf16: max abs err {err!r} against the rounded plain version, "
+          f"|kernel - f32| at {ratio:.3f} of the bf16 bound; kernel "
+          f"{ms:.6f} ms (the first, CUDA-core form at Mamba2's serving "
+          f"shape: {FIRST_FORM_MS['K3']} ms), plain {plain:.6f} ms, bound "
+          f"{bound:.6f} ms ({nbytes} B at 3.35 TB/s with B/C read once per "
+          f"group; the per-head interface {head_bytes} B, "
+          f"{head_bytes / HBM_BPS * 1e3:.6f} ms; {flops} FLOP as the TPU "
+          f"kernel counts them take {flops / BF16_FLOPS * 1e3:.6f} ms at the "
+          f"bf16 tensor-core peak); no single PyTorch call computes it",
+          flush=True)
+    by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
+    return ms, plain, bound, by, err, ratio
 
 
 def serve_prompts(cfg):
@@ -2231,12 +2289,16 @@ def serve_prompts(cfg):
 
 
 def prefill_logits(model, params, prompts):
+    """The last prompt position's logits of one prefill (the audio and VLM
+    families given the server's zero frontend embeddings)."""
+    from repro_torch.launch.serve import frontend_inputs
     with torch.inference_mode():
         cache = model.init_cache(prompts.shape[0],
                                  prompts.shape[1] + SERVE_GEN,
                                  device="cuda")
         logits, _ = model.prefill(params, {"tokens": torch.from_numpy(
-            prompts.astype(np.int64)).cuda()}, cache)
+            prompts.astype(np.int64)).cuda(), **frontend_inputs(
+                model.cfg, prompts.shape[0], "cuda")}, cache)
     return logits[:, -1].float()
 
 
@@ -2443,43 +2505,83 @@ def phase_serve_mamba(BatchedServer, build_model, k3):
 def card_params(build_model, cfg, seed=0):
     """``cfg``'s parameters drawn on the card from a CUDA generator seeded
     with ``seed`` (a CPU draw of billions of parameters takes minutes).
-    Returns (params, seconds to draw them)."""
+    Returns (params, seconds to draw them, the draw's peak bytes)."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = build_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     torch.cuda.synchronize()
-    return params, time.perf_counter() - t0
+    return (params, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
 
 
-def serve_zoo_model(BatchedServer, build_model, cfg, k4, moe_mod, note=""):
+def k4_per_generate(cfg):
+    """K4 launches in one ``generate`` under attention_impl="flash", all
+    at prefill: one a layer; the hybrid family one a shared-block
+    invocation; the audio family one a layer of the encoder, and two a
+    decoder layer (self- and cross-attention)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_period
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def k4_route_launches(zoo, shape):
+    """K4's launches at ``shape`` (a ``K4_ZOO`` or ``K4_NEW`` entry) in the
+    zoo phase's generates, from their shape tallies; the VLM's depth cut
+    counts its kept layers."""
+    key = str(list(shape))
+    return sum(f["k4_shapes"].get(key, 0) for f in zoo.values())
+
+
+def serve_zoo_model(BatchedServer, build_model, cfg, k4, moe_mod, note="",
+                    k3=None):
     """One configuration served on the card under attention_impl="flash"
-    with random weights from seed 0: ``timed_generate``, K4 launched once a
-    layer, and (the MoE family) the (token, expert) slots the capacity
-    dropped in that generate's prefill (decode takes the dense combine).
-    Returns (server, prompts, tokens, figures)."""
+    with random weights from seed 0: ``timed_generate``, K4 launched as
+    ``k4_per_generate`` says (and tallied by shape), K3 (``k3``: the
+    hybrid family) once a Mamba2 layer, and (the MoE family) the (token,
+    expert) slots the capacity dropped in that generate's prefill (decode
+    takes the dense combine). Returns (server, prompts, tokens,
+    figures)."""
     cfg = dataclasses.replace(cfg, attention_impl="flash")
-    params, init_s = card_params(build_model, cfg)
+    params, init_s, draw_peak = card_params(build_model, cfg)
     srv = BatchedServer(cfg, params=params, device="cuda")
     prompts = serve_prompts(cfg)
     moe = cfg.family == "moe"
+
+    def on_start():
+        k4.by_shape.clear()
+        if moe:
+            moe_mod.DROPPED = []
+        if k3 is not None:
+            k3.launches = 0
+
     # the warm-up at the full prompt length: a MoE prefill's sorted
     # dispatch runs only from 4 x experts tokens a row
     toks, wall, launches, prefill_ms, decode_ms, peak = timed_generate(
-        srv, prompts, k4,
-        on_start=(lambda: setattr(moe_mod, "DROPPED", [])) if moe else None,
-        warm_len=SERVE_PROMPT)
+        srv, prompts, k4, on_start=on_start, warm_len=SERVE_PROMPT)
+    tally = dict(k4.by_shape)
     dropped = None
     if moe:
         dropped = sum(int(d) for d in moe_mod.DROPPED)
         moe_mod.DROPPED = None
-    assert launches == cfg.num_layers, (cfg.name, launches, cfg.num_layers)
+    assert launches == k4_per_generate(cfg) == sum(tally.values()), \
+        (cfg.name, launches, tally)
+    k3_launches = None
+    if k3 is not None:
+        k3_launches = k3.launches
+        assert k3_launches == cfg.num_layers, (cfg.name, k3_launches)
     slots = cfg.num_layers * SERVE_BATCH * SERVE_PROMPT * \
         cfg.num_experts_per_tok if moe else 0
     fig = dict(tokens_per_s=toks.size / wall, wall_s=wall,
                prefill_ms=prefill_ms,
                decode_ms=sum(decode_ms) / len(decode_ms),
-               peak_gib=peak / 2 ** 30, k4_launches=launches,
+               peak_gib=peak / 2 ** 30, draw_peak_gib=draw_peak / 2 ** 30,
+               k4_launches=launches,
+               k4_shapes={str(list(k)): n for k, n in tally.items()},
+               k3_launches=k3_launches,
                layers=cfg.num_layers, params=cfg.param_count(),
                dropped_slots=dropped, routed_slots=slots or None)
     moe_note = ""
@@ -2490,30 +2592,63 @@ def serve_zoo_model(BatchedServer, build_model, cfg, k4, moe_mod, note=""):
                     f"expert) dropped {dropped} of {slots} (token, expert) "
                     f"slots ({dropped / slots:.2%}) over {cfg.num_layers} "
                     "layers")
+    k3_note = f", K3 launches {k3_launches}" if k3 is not None else ""
     print(f"serve {cfg.name}{note} ({cfg.param_count()} parameters, "
           f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"attention_impl=flash, random weights from seed 0 drawn on the "
-          f"card in {init_s!r} s): generate {SERVE_BATCH} x {SERVE_PROMPT} "
+          f"card in {init_s!r} s, the draw's peak memory "
+          f"{fig['draw_peak_gib']!r} GiB): generate {SERVE_BATCH} x {SERVE_PROMPT} "
           f"prompt tokens + {SERVE_GEN} new: wall {wall!r} s, "
           f"{toks.size / wall!r} generated tokens/s; prefill {prefill_ms!r} "
           f"ms, decode {fig['decode_ms']!r} ms/token (CUDA events, "
-          f"{len(decode_ms)} steps); K4 launches {launches}; peak memory "
-          f"{fig['peak_gib']!r} GiB{moe_note}; first row "
-          f"{toks[0][:8].tolist()}", flush=True)
+          f"{len(decode_ms)} steps); K4 launches {launches} by shape "
+          f"{tally}{k3_note}; peak memory {fig['peak_gib']!r} GiB{moe_note}; "
+          f"first row {toks[0][:8].tolist()}", flush=True)
     return srv, prompts, toks, fig
 
 
-def phase_zoo(BatchedServer, build_model, get_config, k4, moe_mod):
+def f32_routes(BatchedServer, cfg, params, prompts, k4, out):
+    """``cfg`` in f32 under attention_impl="flash" (K4's CUDA-core form)
+    and "xla" on the same parameters: the generated tokens equal and the
+    prefill logits within 1e-3 x max(1, max|logit|); the einsum route
+    launches no K4. Records the logits' difference in ``out``."""
+    f32 = {impl: BatchedServer(dataclasses.replace(
+        cfg, dtype="float32", attention_impl=impl), params=params,
+        device="cuda") for impl in ("flash", "xla")}
+    k4.launches = 0
+    f_toks = f32["flash"].generate(prompts, SERVE_GEN)
+    assert k4.launches == k4_per_generate(cfg), k4.launches
+    x_toks = f32["xla"].generate(prompts, SERVE_GEN)
+    assert k4.launches == k4_per_generate(cfg), "the einsum route launched K4"
+    f_log = prefill_logits(f32["flash"].model, params, prompts)
+    x_log = prefill_logits(f32["xla"].model, params, prompts)
+    f32_diff = float((f_log - x_log).abs().max())
+    assert np.array_equal(f_toks, x_toks), (f_toks, x_toks)
+    assert f32_diff < 1e-3 * max(1.0, float(x_log.abs().max())), f32_diff
+    out.update(f32_route_diff=f32_diff, f32_max_logit=float(
+        x_log.abs().max()))
+    print(f"serve {cfg.name}: in f32 (K4's CUDA-core form) all "
+          f"{f_toks.size} generated tokens equal the einsum route's, "
+          f"prefill logits max abs diff {f32_diff!r} (bound 1e-3 x max(1, "
+          f"max|logit|), max|logit| {out['f32_max_logit']!r})", flush=True)
+
+
+def phase_zoo(BatchedServer, build_model, get_config, k4, k3, moe_mod):
     """The LM zoo's newer configurations on the card (random weights,
     8 x 512-token prompts + 32 greedy tokens, attention_impl="flash"):
     (a) granite-moe-1b-a400m at full width, then its einsum route on the
     same weights: bf16 prefill logits at the Qwen3 phase's bound
     (``compare_routes``), and in f32 (K4's CUDA-core form) the generated
-    tokens equal; (b) qwen2.5-3b at full width, and its chunked-attention
-    prefill (``ZOO_Q_BLOCK``) against the einsum route's; (c)
-    phi4-mini-3.8b at full width; (d) internlm2-20b and qwen3-moe-30b-a3b
-    at their published widths, depth cut to ``ZOO_CUT``. Returns {arch:
-    figures}."""
+    tokens equal (``f32_routes``); (b) qwen2.5-3b at full width, and its
+    chunked-attention prefill (``ZOO_Q_BLOCK``) against the einsum
+    route's; (c) phi4-mini-3.8b at full width; (e) zamba2-2.7b (the
+    hybrid family: K3 a Mamba2 layer, K4 at head dim 80 a shared-block
+    invocation) and (f) whisper-large-v3 (the audio family: K4 non-causal
+    over the encoder's 1,500 frames and the decoder's cross-attention) at
+    full width, each also through ``f32_routes``; (d) internlm2-20b,
+    qwen3-moe-30b-a3b and internvl2-76b (the VLM family, 256 vision
+    tokens) at their published widths, depth cut to ``ZOO_CUT``. Returns
+    {arch: figures}."""
     out = {}
     t = time.perf_counter()
     cfg = get_config("granite-moe-1b-a400m")
@@ -2529,27 +2664,11 @@ def phase_zoo(BatchedServer, build_model, get_config, k4, moe_mod):
                           "bf16", prefill_logits(srv.model, params, prompts),
                           prefill_logits(xla.model, params, prompts))
     bf16_equal = float((xla_toks == toks).mean())
-    f32 = {impl: BatchedServer(dataclasses.replace(
-        cfg, dtype="float32", attention_impl=impl), params=params,
-        device="cuda") for impl in ("flash", "xla")}
-    k4.launches = 0
-    f_toks = f32["flash"].generate(prompts, SERVE_GEN)
-    assert k4.launches == cfg.num_layers, k4.launches
-    x_toks = f32["xla"].generate(prompts, SERVE_GEN)
-    assert k4.launches == cfg.num_layers, "the einsum route launched K4"
-    f_log = prefill_logits(f32["flash"].model, params, prompts)
-    x_log = prefill_logits(f32["xla"].model, params, prompts)
-    f32_diff = float((f_log - x_log).abs().max())
-    assert np.array_equal(f_toks, x_toks), (f_toks, x_toks)
-    assert f32_diff < 1e-3 * max(1.0, float(x_log.abs().max())), f32_diff
-    out[cfg.name].update(bf16_route_diff=diff, bf16_equal_tokens=bf16_equal,
-                         f32_route_diff=f32_diff)
+    out[cfg.name].update(bf16_route_diff=diff, bf16_equal_tokens=bf16_equal)
     print(f"serve {cfg.name}: in bf16 the einsum route's greedy tokens equal "
-          f"the flash route's on {bf16_equal!r} of {toks.size}; in f32 "
-          f"(K4's CUDA-core form) all {f_toks.size} generated tokens equal, "
-          f"prefill logits max abs diff {f32_diff!r} (bound 1e-3 x max(1, "
-          f"max|logit|))", flush=True)
-    del srv, xla, f32, params
+          f"the flash route's on {bf16_equal!r} of {toks.size}", flush=True)
+    f32_routes(BatchedServer, cfg, params, prompts, k4, out[cfg.name])
+    del srv, xla, params
     torch.cuda.empty_cache()
     print(f"zoo (a) granite: {time.perf_counter() - t:.1f} s", flush=True)
 
@@ -2581,6 +2700,18 @@ def phase_zoo(BatchedServer, build_model, get_config, k4, moe_mod):
     torch.cuda.empty_cache()
     print(f"zoo (c) phi4-mini-3.8b: {time.perf_counter() - t:.1f} s",
           flush=True)
+
+    for label, arch in (("e", "zamba2-2.7b"), ("f", "whisper-large-v3")):
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        srv, prompts, _, out[arch] = serve_zoo_model(
+            BatchedServer, build_model, cfg, k4, moe_mod,
+            k3=k3 if cfg.family == "hybrid" else None)
+        f32_routes(BatchedServer, cfg, srv.params, prompts, k4, out[arch])
+        del srv
+        torch.cuda.empty_cache()
+        print(f"zoo ({label}) {arch}: {time.perf_counter() - t:.1f} s",
+              flush=True)
 
     for arch, layers in ZOO_CUT.items():
         t = time.perf_counter()
@@ -2655,7 +2786,7 @@ def main() -> int:
     k4_err = max([k4_err] + [v[5] for v in k4_zoo.values()])
     print(f"K4 phase: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    k3_err, k3_times = phase_k3(ssd_scan, ssm_model)
+    k3_err, k3_t = phase_k3(ssd_scan, ssm_model)
     print(f"K3 phase: {time.perf_counter() - t:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
@@ -2759,7 +2890,8 @@ def main() -> int:
     # ---- 8b. the newer configurations: the MoE family, three dense ones --
     t = time.perf_counter()
     zoo = phase_zoo(BatchedServer, build_model, get_config,
-                    flash_attention_cuda, moe_mod)
+                    flash_attention_cuda, ssd_scan.ssd_intra_chunk_cuda,
+                    moe_mod)
     print(f"zoo phase: {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- 9. the kernels record ---------------------------------------------
@@ -2833,11 +2965,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:35",
         "launches": k3_launches,
         "max_abs_err": k3_err,
-        "ms": k3_times[0],
-        "plain_ms": k3_times[1],
-        "bound_ms": k3_times[2],
-        "bound_by": k3_times[3],
-        "library_ms": k3_times[4],
+        "ms": k3_t["serving shape"][0],
+        "plain_ms": k3_t["serving shape"][1],
+        "bound_ms": k3_t["serving shape"][2],
+        "bound_by": k3_t["serving shape"][3],
+        "library_ms": k3_t["serving shape"][4],
+        "zoo_shapes": {"zamba2-2.7b": {
+            "shape": list(K3_ZAMBA),
+            "launches": zoo["zamba2-2.7b"]["k3_launches"],
+            "ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
+            "library_ms": v[4], "max_abs_err": v[5]}
+            for v in (k3_t["zamba2-2.7b"],)},
+        "zoo_launches": {"zamba2-2.7b": zoo["zamba2-2.7b"]["k3_launches"]},
     }, {
         "name": "online_replay (online's in-slot replay: Alg. 2's "
                 "sequential lag coupling, one launch a slot)",
@@ -2863,11 +3002,12 @@ def main() -> int:
         "bound_ms": k4_times[2],
         "bound_by": k4_times[3],
         "library_ms": k4_times[4],
-        "zoo_shapes": {arch: {
-            "shape": list(K4_ZOO[arch]), "launches": zoo[arch]["k4_launches"],
+        "zoo_shapes": {name: {
+            "shape": list(shape), "launches": k4_route_launches(zoo, shape),
             "ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
             "library_ms": v[4], "max_abs_err": v[5]}
-            for arch, v in k4_zoo.items()},
+            for name, v in k4_zoo.items()
+            for shape in ({**K4_ZOO, **K4_NEW}[name],)},
         "zoo_launches": {arch: f["k4_launches"] for arch, f in zoo.items()},
     }], "zoo_serving": zoo}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2897,27 +3037,30 @@ def main_scan() -> int:
 
 
 def main_zoo() -> int:
-    """``python3 chip_smoke.py zoo``: K4's build, K4 at the newer
-    configurations' shapes and the zoo phase alone (a few minutes), for
-    work on the LM zoo; prints no ``ok`` line."""
+    """``python3 chip_smoke.py zoo``: K4's and K3's builds, K4 at the newer
+    configurations' shapes, K3 at zamba2's and the zoo phase alone (a few
+    minutes), for work on the LM zoo; prints no ``ok`` line."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _cuda_build
+    from repro_torch.kernels import _cuda_build, ssd_scan
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_cuda)
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import build_model, moe as moe_mod
     print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    phase_build(_cuda_build, ("flash_attention",))
+    phase_build(_cuda_build, ("flash_attention", "ssd_scan"))
     t = time.perf_counter()
     phase_k4_zoo(flash_attention)
+    k3_times(ssd_scan, K3_ZAMBA, torch.Generator(device="cuda").manual_seed(3),
+             "zamba2-2.7b")
     zoo = phase_zoo(BatchedServer, build_model, get_config,
-                    flash_attention_cuda, moe_mod)
+                    flash_attention_cuda, ssd_scan.ssd_intra_chunk_cuda,
+                    moe_mod)
     print(json.dumps(zoo), flush=True)
     print(f"zoo phase: {time.perf_counter() - t:.1f} s", flush=True)
     return 0

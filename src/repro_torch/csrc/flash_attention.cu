@@ -33,13 +33,22 @@
 // aligned bases and strides; the wrapper checks), rows and keys past the
 // end read as 0, and the swizzle follows d: 2d bytes up to 128.
 // Shared memory at d = 128: q 32 KB + 2 stages x (k 16 KB + v 16 KB).
+// Head dim 80 (zamba2's shared blocks, 2560 / 32) is no multiple of the
+// 64-column chunk the 128-byte swizzle reads: it runs the d = 128 block
+// on maps whose extent is the real 80 columns, so TMA zero-fills columns
+// 80-127 of every q, k and v tile; the zero columns add nothing to a
+// score and give output columns 80-127 that are not stored. This costs
+// 60 % more MMA work than d = 80 needs, on a shape whose bound is its
+// bytes; running at 80 itself would take a second, 32-byte-swizzled
+// chunk and PV split into N = 64 and N = 16 wgmmas.
 //
 // f32: flash_attention_kernel, the first form of this kernel, on the
 // CUDA cores. Thread (ty, tx) of a 16 x 16 grid owns query rows
 // ty + 16 i (i < 4), key columns tx + 16 j (j < 4) of a score tile, and
-// output columns tx + 16 c (c < d / 16); a row's max and sum are reduced
-// over the 16 threads of a half-warp with shuffles. Tiles live in dynamic
-// shared memory as f32 (115,712 B at d = 128): q tile 64 x (d+1), k tile
+// output columns tx + 16 c (c < d / 16, 5 at d = 80); a row's max and sum
+// are reduced over the 16 threads of a half-warp with shuffles. Tiles live
+// in dynamic shared memory as f32 (115,712 B at d = 128, 78,656 B at d =
+// 80; the launch opts into it at every d): q tile 64 x (d+1), k tile
 // transposed d x 65, v tile 64 x d and the probabilities 64 x 65 (the +1
 // columns keep a warp's reads on distinct banks).
 //
@@ -224,6 +233,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
     case 16: return launch<16>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
     case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
     case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
+    case 80: return launch<80>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
     case 128: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -291,7 +301,7 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mv,
                      __nv_bfloat16* __restrict__ o, int H, int KV, int Sq,
                      int Sk, int o_sb, int o_sh, int o_ss, float scale_log2,
-                     int causal) {
+                     int causal, int d_out) {
   using S = Shape<D>;
   constexpr int RB = S::RB, CH = S::CH, NCH = S::NCH;
   extern __shared__ uint8_t smem_raw[];
@@ -450,8 +460,8 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap mq,
   for (int i = 0; i < D / 2; i += 2) {
     const int hi = (i / 2) % 2;
     const int row = hi ? r_hi : r_lo;
-    if (row < Sq) {
-      const int col = sm90::frag_col(i, t);
+    const int col = sm90::frag_col(i, t);
+    if (row < Sq && col < d_out) {
       *reinterpret_cast<uint32_t*>(ob + (long long)row * o_ss + col) =
           sm90::pack_bf16(acc[i] * inv[hi], acc[i + 1] * inv[hi]);
     }
@@ -469,20 +479,24 @@ inline void tma_dims(long long d, long long S, long long heads, long long B,
   st[2] = B > 1 ? s_b : st[1] * heads;
 }
 
+// D: the head dim the block computes at; d: the tensors' own, d <= D. At
+// d < D the maps give TMA the real extent d, so the chunks' columns d..D-1
+// read as 0 (they add 0 to every score and produce output columns that
+// are never stored).
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int Sq, int Sk, const int* st,
+                   int B, int H, int KV, int Sq, int Sk, int d, const int* st,
                    float scale, int causal, cudaStream_t stream) {
   using S = Shape<D>;
   long long dims[4], strides[3];
   CUtensorMap mq, mk, mv;
-  tma_dims(D, Sq, H, B, st[0], st[1], st[2], dims, strides);
+  tma_dims(d, Sq, H, B, st[0], st[1], st[2], dims, strides);
   cudaError_t err = sm90::make_map_bf16_4d(&mq, q, dims, strides, S::CH, BQ);
   if (err != cudaSuccess) return err;
-  tma_dims(D, Sk, KV, B, st[3], st[4], st[5], dims, strides);
+  tma_dims(d, Sk, KV, B, st[3], st[4], st[5], dims, strides);
   err = sm90::make_map_bf16_4d(&mk, k, dims, strides, S::CH, BK);
   if (err != cudaSuccess) return err;
-  tma_dims(D, Sk, KV, B, st[6], st[7], st[8], dims, strides);
+  tma_dims(d, Sk, KV, B, st[6], st[7], st[8], dims, strides);
   err = sm90::make_map_bf16_4d(&mv, v, dims, strides, S::CH, BK);
   if (err != cudaSuccess) return err;
   auto kern = flash_attention_bf16<D>;
@@ -492,7 +506,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, S::SMEM, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, H, KV, Sq, Sk, st[9], st[10], st[11],
-      scale * LOG2E, causal);
+      scale * LOG2E, causal, d);
   return cudaGetLastError();
 }
 
@@ -501,10 +515,13 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        const int* st, float scale, int causal,
                        cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
-    case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
-    case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
-    case 128: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, stream);
+    case 16: return launch<16>(q, k, v, o, B, H, KV, Sq, Sk, 16, st, scale, causal, stream);
+    case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, 32, st, scale, causal, stream);
+    case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, 64, st, scale, causal, stream);
+    // 80 is no multiple of the 64-column swizzled chunk: computed at 128
+    // on zero-filled columns (see launch)
+    case 80: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, 80, st, scale, causal, stream);
+    case 128: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, 128, st, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }

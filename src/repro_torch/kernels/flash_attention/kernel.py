@@ -4,13 +4,21 @@
 
 ``flash_attention_cuda`` checks its tensors, allocates the output and
 launches the kernel on the current stream; ``flash_attention_cuda.
-launches`` counts its launches. The dtype picks the kernel: bf16 runs
-the tensor-core form (wgmma fed by TMA), f32 the CUDA-core form. TMA
-reads bf16 tiles straight from the caller's strides, so for bf16 the
-base and every stride of a dimension longer than 1 must be a multiple of
-16 bytes (the wrapper raises otherwise; nothing is copied). The kernel
-has no backward (neither has the TPU kernel it replaces), so a call that
-would need a gradient raises.
+launches`` counts its launches and ``flash_attention_cuda.by_shape``
+the same launches by shape, (B, H, KV, Sq, Sk, d, causal). The dtype
+picks the kernel: bf16 runs the tensor-core form (wgmma fed by TMA), f32
+the CUDA-core form. TMA reads bf16 tiles straight from the caller's
+strides, so for bf16 the base and every stride of a dimension longer
+than 1 must be a multiple of 16 bytes (the wrapper raises otherwise;
+nothing is copied). The kernel has no backward (neither has the TPU
+kernel it replaces), so a call that would need a gradient raises.
+
+Head dims: 16, 32, 64, 128 and 80 (zamba2's shared attention blocks). At
+80 the f32 form tiles five 16-column strips a thread; the bf16 form runs
+its d = 128 block on TMA maps of the real 80 columns, which zero-fill
+columns 80-127 (a bf16 row of 160 B meets TMA's 16-byte rule). The TPU
+kernel takes any d; other head dims raise here until the card's tests
+cover them.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ import torch
 
 from .. import _cuda_build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT31 = 2 ** 31
 
@@ -103,7 +111,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
         int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     _cuda_build.check(lib, "flash_attention_launch", code)
     flash_attention_cuda.launches += 1
+    key = (B, H, KV, Sq, Sk, d, bool(causal))
+    by_shape = flash_attention_cuda.by_shape
+    by_shape[key] = by_shape.get(key, 0) + 1
     return o
 
 
 flash_attention_cuda.launches = 0   # K4 launches since the last reset
+flash_attention_cuda.by_shape = {}  # the same launches by shape

@@ -1,7 +1,9 @@
 """Batched serving driver: prefill a batch of prompts, then greedy-decode
 with the KV cache (or the SSM states) — the counterpart of
-``repro/launch/serve.py``, for the dense, MoE and SSM families (the
-hybrid, audio and VLM families raise, ROADMAP Queue 1 item 7).
+``repro/launch/serve.py``, for every family of the zoo. The audio family
+is given zero frame embeddings (B, encoder_seq, D) and the VLM family
+zero patch embeddings (B, num_vision_tokens, D), f32, as in the JAX
+package's server (their frontends are stubs).
 
 The prefill and decode steps are the model's own (``models/zoo.py``), run
 eagerly under ``torch.inference_mode()``. The cache's position is a Python
@@ -27,6 +29,20 @@ from ..device import resolve_device
 from ..models import build_model
 
 
+def frontend_inputs(cfg, batch_size: int, device) -> dict:
+    """The stub frontends' inputs a batch carries beside its tokens, as
+    ``repro/launch/serve.py`` gives them: zero f32 frame embeddings (B, encoder_seq,
+    D) for the audio family, zero patch embeddings (B, num_vision_tokens,
+    D) for the VLM family, nothing for the others."""
+    if cfg.family == "audio":
+        return {"audio_embeds": torch.zeros(
+            (batch_size, cfg.encoder_seq, cfg.d_model), device=device)}
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.zeros(
+            (batch_size, cfg.num_vision_tokens, cfg.d_model), device=device)}
+    return {}
+
+
 class BatchedServer:
     """Greedy batched decode over a fixed cohort of requests."""
 
@@ -38,13 +54,6 @@ class BatchedServer:
         self.params = params if params is not None else self.model.init(
             torch.Generator().manual_seed(seed), device=self.device)
 
-    def _extra_inputs(self, batch_size: int):
-        if self.cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(
-                f"serving the {self.cfg.family} family (its encoder or "
-                "vision inputs) is not ported yet (ROADMAP Queue 1 item 7)")
-        return {}
-
     def generate(self, prompts, max_new_tokens: int) -> np.ndarray:
         """prompts: (B, S) int. Returns (B, max_new_tokens) int32 (one token
         at least, as the JAX driver)."""
@@ -54,7 +63,8 @@ class BatchedServer:
             cache = self.model.init_cache(B, S + max_new_tokens,
                                           device=self.device)
             batch = {"tokens": torch.from_numpy(prompts.astype(np.int64))
-                     .to(self.device), **self._extra_inputs(B)}
+                     .to(self.device),
+                     **frontend_inputs(self.cfg, B, self.device)}
             logits, cache = self.model.prefill(self.params, batch, cache)
             tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
             out = [tok]

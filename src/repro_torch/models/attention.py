@@ -8,25 +8,38 @@ the softmax runs in f32 and its weights are cast back to the activation
 dtype before ``w v``. GQA groups query heads as ``(KV, G)``, so query head
 h reads KV head ``h // G``.
 
+``mask``: None (causal self-attention when ``cfg.causal``), a boolean
+tensor broadcast over the ``(B, KV, G, Sq, Sk)`` scores, or ``True`` (a
+Python bool): keep every key — the audio family's non-causal encoder,
+which the JAX package calls with ``mask=jnp.bool_(True)``; the scores are
+then left unmasked, the same numbers as ``where(True, ...)``.
+
 ``attention_impl``:
 - ``"xla"``: the einsum attention ``_sdpa`` (with a cache, over all its
   slots, the unwritten ones masked), as in the JAX package;
-- ``"flash"``: causal self-attention with Sq == Sk — training without a
-  cache, and the prefill (``cache_pos == 0``) on its fresh keys — goes
-  through K4 (``kernels/flash_attention``, the CUDA kernel on CUDA
-  tensors). At ``cache_pos == 0`` every cache slot past Sq is masked and
+- ``"flash"``: K4 (``kernels/flash_attention``, the CUDA kernel on CUDA
+  tensors) takes three routes. (1) Causal self-attention with Sq == Sk —
+  training without a cache, and the prefill (``cache_pos == 0``) on its
+  fresh keys: at ``cache_pos == 0`` every cache slot past Sq is masked and
   contributes exactly 0, so K4 on the fresh keys is the same function as
-  ``_sdpa`` over the cache. Decode (Sq = 1 over the cache) and an explicit
-  mask stay on ``_sdpa``; a ``logits_softcap`` is not part of K4's
-  contract and raises;
+  ``_sdpa`` over the cache. (2) Non-causal self-attention with
+  ``mask=True`` (the audio encoder, Sq = Sk = encoder_seq). (3)
+  Cross-attention (``kv_override``) with Sq > 1 and no mask: the audio
+  decoder's prefill and loss, Sq tokens over the encoder's Sk frames.
+  Decode (Sq = 1), any other mask and a causal self-attention at
+  ``cache_pos > 0`` stay on ``_sdpa``; a ``logits_softcap`` is not part of
+  K4's contract and raises;
 - ``"chunked"``: ``_sdpa_chunked`` (scores for ``attn_q_block`` query
   rows at a time, in f32, each block recomputed in the backward pass)
-  for causal attention with ``Sq >= 2 * attn_q_block`` — training, and
-  over the whole cache at ``cache_pos`` — as in the JAX package; shorter
-  queries, decode and an explicit mask stay on ``_sdpa``.
+  with ``Sq >= 2 * attn_q_block`` and no mask — causal self-attention
+  (training, and over the whole cache at ``cache_pos``) and non-causal
+  cross-attention — as in the JAX package; shorter queries, decode and a
+  mask (``True`` included) stay on ``_sdpa``.
 
-Cross-attention (``kv_override``, the audio family) is still to port
-(ROADMAP Queue 1 item 7) and raises.
+Cross-attention: ``cross_kv`` projects the encoder output to K/V once
+(the audio family caches them at prefill); ``attention(...,
+kv_override=(k, v))`` projects only q, with no RoPE, and attends over
+them.
 
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) picks how K4 runs.
 K4 has no backward: a flash call that needs a gradient raises on CUDA.
@@ -143,11 +156,11 @@ def _sdpa_chunked(q, k, v, cfg, *, causal: bool = True, offset: int = 0):
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
 
-def _flash(q, k, v, kernel):
+def _flash(q, k, v, kernel, causal=True):
     """K4 on (B, S, heads, hd) activations, as (B, heads, S, hd) views;
     the output comes back in the (B, S, H, hd) layout."""
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True, kernel=kernel)
+                          v.transpose(1, 2), causal=causal, kernel=kernel)
     return out.transpose(1, 2)
 
 
@@ -160,48 +173,80 @@ def attention(x, p, cfg, positions=None, mask=None, kv_cache=None,
     are written at ``cache_pos`` (a Python int) IN PLACE into these
     tensors, which ``new_cache`` returns (JAX's functional update is
     donated, so it too keeps one cache), and attention runs over the whole
-    cache."""
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override, the audio family) is not ported "
-            "yet (ROADMAP Queue 1 item 7)")
+    cache. ``kv_override``: precomputed (k, v) of (B, Sk, KV, hd) —
+    cross-attention (the audio decoder); no cache is returned."""
     flash = cfg.attention_impl == "flash"
     if flash and cfg.logits_softcap:
         raise NotImplementedError(
             "attention_impl='flash' with logits_softcap: a softcap is not "
             "part of K4's contract")
-    q, k, v = _project_qkv(x, p, cfg, positions)
     dt = x.dtype
-    chunked = cfg.attention_impl == "chunked" and mask is None and \
-        cfg.causal and q.shape[1] >= 2 * cfg.attn_q_block
+    B, Sq = x.shape[:2]
+    H, hd = cfg.num_heads, cfg.head_dim
+
+    def chunked(causal):
+        return cfg.attention_impl == "chunked" and mask is None and \
+            causal and Sq >= 2 * cfg.attn_q_block
+
+    if kv_override is not None:
+        q = (x @ p["wq"].to(dt)).reshape(B, Sq, H, hd)
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(dt).reshape(H, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k, v = kv_override
+        if flash and mask is None and Sq > 1:
+            out = _flash(q, k.to(dt), v.to(dt), kernel, causal=False)
+        elif chunked(True):
+            out = _sdpa_chunked(q, k, v, cfg, causal=False)
+        else:
+            out = _sdpa(q, k, v, None if mask is True else mask, cfg)
+        return out.reshape(B, Sq, H * hd) @ p["wo"].to(dt), None
+
+    q, k, v = _project_qkv(x, p, cfg, positions)
     new_cache = None
     if kv_cache is not None:
-        S = q.shape[1]
-        kv_cache["k"][:, cache_pos:cache_pos + S] = k
-        kv_cache["v"][:, cache_pos:cache_pos + S] = v
+        kv_cache["k"][:, cache_pos:cache_pos + Sq] = k
+        kv_cache["v"][:, cache_pos:cache_pos + Sq] = v
         new_cache = kv_cache
         if flash and mask is None and cfg.causal and cache_pos == 0:
-            ck, cv = kv_cache["k"][:, :S], kv_cache["v"][:, :S]
+            ck, cv = kv_cache["k"][:, :Sq], kv_cache["v"][:, :Sq]
             out = _flash(q, ck.to(dt), cv.to(dt), kernel)
-        elif chunked:
+        elif chunked(cfg.causal):
             out = _sdpa_chunked(q, kv_cache["k"].to(dt),
                                 kv_cache["v"].to(dt), cfg, causal=True,
                                 offset=cache_pos)
         else:
             if mask is None:
-                mask = causal_mask(S, kv_cache["k"].shape[1],
+                mask = causal_mask(Sq, kv_cache["k"].shape[1],
                                    offset=cache_pos, device=x.device)
-            out = _sdpa(q, kv_cache["k"].to(dt), kv_cache["v"].to(dt), mask,
-                        cfg)
+            out = _sdpa(q, kv_cache["k"].to(dt), kv_cache["v"].to(dt),
+                        None if mask is True else mask, cfg)
     elif flash and mask is None and cfg.causal:
         out = _flash(q, k, v, kernel)
-    elif chunked:
+    elif flash and mask is True:
+        out = _flash(q, k, v, kernel, causal=False)
+    elif chunked(cfg.causal):
         out = _sdpa_chunked(q, k, v, cfg, causal=True)
     else:
         if mask is None and cfg.causal:
-            mask = causal_mask(q.shape[1], k.shape[1], device=x.device)
-        out = _sdpa(q, k, v, mask, cfg)
-    B, Sq = x.shape[:2]
-    out = out.reshape(B, Sq, cfg.num_heads * cfg.head_dim) \
-        @ p["wo"].to(dt)
+            mask = causal_mask(Sq, k.shape[1], device=x.device)
+        out = _sdpa(q, k, v, None if mask is True else mask, cfg)
+    out = out.reshape(B, Sq, H * hd) @ p["wo"].to(dt)
     return out, new_cache
+
+
+def cross_kv(enc, p, cfg):
+    """Cross-attention K/V of (B, S, KV, hd) from the encoder output (the
+    audio family), as in the JAX package."""
+    B, S, _ = enc.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    dt = enc.dtype
+    k = (enc @ p["wk"].to(dt)).reshape(B, S, KV, hd)
+    v = (enc @ p["wv"].to(dt)).reshape(B, S, KV, hd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt).reshape(KV, hd)
+        v = v + p["bv"].to(dt).reshape(KV, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v

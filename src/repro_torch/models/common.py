@@ -3,8 +3,10 @@ counterpart of ``repro/models/common.py``.
 
 Numerics follow the JAX package: norms and RoPE compute in f32 and cast
 back to the activation dtype; RMSNorm stores ``scale - 1`` (zeros at
-init) and multiplies by ``1 + scale``; RoPE rotates the two halves of the
-head dimension (not interleaved pairs).
+init) and multiplies by ``1 + scale``; LayerNorm (the audio family) keeps
+``scale`` (ones) and ``bias`` (zeros) and normalises by the biased
+variance, as ``jnp.var`` does; RoPE rotates the two halves of the head
+dimension (not interleaved pairs).
 """
 from __future__ import annotations
 
@@ -39,19 +41,24 @@ def rms_norm(x, scale, eps: float = 1e-5):
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def apply_norm(x, p, cfg):
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_type {cfg.norm_type!r} is not ported yet (ROADMAP "
-            "Queue 1 item 7)")
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
 def norm_params(dim: int, cfg):
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_type {cfg.norm_type!r} is not ported yet (ROADMAP "
-            "Queue 1 item 7)")
+    if cfg.norm_type == "layernorm":
+        return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
     return {"scale": torch.zeros(dim)}      # rmsnorm stores (scale - 1)
 
 

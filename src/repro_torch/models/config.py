@@ -1,11 +1,11 @@
 """Model configuration for every architecture family in the zoo.
 
 A copy of ``repro/models/config.py`` (plain Python, no JAX): one frozen
-dataclass covers dense / MoE / SSM / hybrid / enc-dec / VLM families;
-family-specific fields default to "off". The port builds only the dense
-family so far (``models/zoo.py``); the fields of the others are kept so
-one config describes an architecture in both packages. Exact assigned
-configs live in ``repro_torch.configs.<arch_id>``.
+dataclass covers dense / MoE / SSM / hybrid / enc-dec / VLM families,
+every one of which the port builds (``models/zoo.py``); family-specific
+fields default to "off", and one config describes an architecture in both
+packages. Exact assigned configs live in
+``repro_torch.configs.<arch_id>``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Model assembly: the transformer and Mamba2 blocks, their layer stacks,
-the LM head and the loss — the counterpart of ``repro/models/model.py``
-for the dense, MoE and SSM families.
+"""Model assembly: the transformer and Mamba2 blocks, their layer stacks
+(dense, SSM and the zamba2-style hybrid), the LM head and the loss — the
+counterpart of ``repro/models/model.py``.
 
 Parameters are a tree (nested dicts) of tensors as in the JAX package;
 ``layers`` leaves are stacked with a leading L dimension. A stack is a
@@ -12,8 +12,7 @@ layer reads its slice as a view and writes it IN PLACE (the JAX stacks
 carry it through the scan with a donated dynamic-update-slice).
 
 ``kernel`` (``"auto"``, ``"cuda"`` or ``"reference"``) reaches K4 (the
-flash route of ``attention``) and K3 (``ssm.ssd_chunked``). The hybrid
-stack is still to port (ROADMAP Queue 1 item 7).
+flash routes of ``attention``) and K3 (``ssm.ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -41,8 +40,10 @@ class Model(NamedTuple):
 
 # ------------------------------------------------------------------ blocks
 def transformer_block(x, p, cfg, positions=None, mask=None, kv_cache=None,
-                      cache_pos=None, *, kernel="auto"):
-    """Pre-norm residual block of the dense and MoE families. Returns (x,
+                      cache_pos=None, cross=None, *, kernel="auto"):
+    """Pre-norm residual block. ``cross``: None, or the (k, v) of the
+    encoder output — the audio decoder's cross-attention after the
+    self-attention (``ln_x`` then ``cross_attn``). Returns (x,
     new_kv_cache, aux): the MoE auxiliary loss, or the number 0.0 for the
     dense MLP (no device op)."""
     h = apply_norm(x, p["ln1"], cfg)
@@ -50,6 +51,11 @@ def transformer_block(x, p, cfg, positions=None, mask=None, kv_cache=None,
                              mask=mask, kv_cache=kv_cache,
                              cache_pos=cache_pos, kernel=kernel)
     x = x + a
+    if cross is not None:
+        h = apply_norm(x, p["ln_x"], cfg)
+        a, _ = attention(h, p["cross_attn"], cfg, kv_override=cross,
+                         kernel=kernel)
+        x = x + a
     h = apply_norm(x, p["ln2"], cfg)
     if cfg.family == "moe":
         m, aux = moe(h, p["moe"], cfg)
@@ -58,10 +64,15 @@ def transformer_block(x, p, cfg, positions=None, mask=None, kv_cache=None,
     return x + m, new_cache, aux
 
 
-def init_transformer_block(generator, cfg):
+def init_transformer_block(generator, cfg, cross: bool = False):
+    """The JAX block's leaves in its draw order: attention, then the
+    cross-attention (``cross``), then the MLP or the experts."""
     p = {"ln1": norm_params(cfg.d_model, cfg),
          "attn": init_attention(generator, cfg),
          "ln2": norm_params(cfg.d_model, cfg)}
+    if cross:
+        p["ln_x"] = norm_params(cfg.d_model, cfg)
+        p["cross_attn"] = init_attention(generator, cfg)
     if cfg.family == "moe":
         p["moe"] = init_moe(generator, cfg)
     else:
@@ -82,9 +93,20 @@ def init_mamba_layer(generator, cfg):
 
 # ------------------------------------------------------------------ stacks
 def _stacked_init(init_one, generator, n):
-    """``n`` draws of ``init_one(generator)`` stacked on a leading dim."""
-    layers = [init_one(generator) for _ in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs), *layers)
+    """``n`` draws of ``init_one(generator)`` stacked on a leading dim.
+    Each layer is drawn and copied into preallocated stacked leaves
+    before the next is drawn, so the peak is the stack plus one layer
+    (stacking a list of n layers would hold twice the stack)."""
+    layer = init_one(generator)
+    stack = tree_map(lambda t: torch.empty((n,) + t.shape, dtype=t.dtype,
+                                           device=t.device), layer)
+    for i in range(n):
+        if i:
+            layer = init_one(generator)
+        for dst, src in zip(tree_leaves(stack), tree_leaves(layer)):
+            dst[i].copy_(src)
+        layer = None
+    return stack
 
 
 def _layers(layers_p, cache=None):
@@ -102,19 +124,21 @@ def _remat(cfg):
 
 
 def dense_stack(x, layers_p, cfg, positions=None, cache=None,
-                cache_pos=None, *, kernel="auto"):
+                cache_pos=None, *, mask=None, kernel="auto"):
     """The layer loop over the stacked parameters. ``cache``: None, or
-    {"k", "v"} of (L, B, Smax, KV, hd), written in place. Returns (x,
-    cache, the layers' summed MoE auxiliary loss (0.0 for the dense
-    family))."""
+    {"k", "v"} of (L, B, Smax, KV, hd), written in place; ``mask``: as
+    ``attention``'s (``True``: the audio encoder's non-causal stack).
+    Returns (x, cache, the layers' summed MoE auxiliary loss (0.0 for the
+    dense family))."""
     aux_sum = 0.0
     for p, kv in _layers(layers_p, cache):
         if kv is None and _remat(cfg):
             x, _, aux = checkpoint(transformer_block, x, p, cfg, positions,
-                                   kernel=kernel, use_reentrant=False)
+                                   mask, kernel=kernel, use_reentrant=False)
         else:
-            x, _, aux = transformer_block(x, p, cfg, positions, kv_cache=kv,
-                                          cache_pos=cache_pos, kernel=kernel)
+            x, _, aux = transformer_block(x, p, cfg, positions, mask,
+                                          kv_cache=kv, cache_pos=cache_pos,
+                                          kernel=kernel)
         aux_sum = aux_sum + aux
     return x, cache, aux_sum
 
@@ -140,6 +164,45 @@ def ssm_decode_stack(x, layers_p, cfg, states):
         out, _ = ssm_decode_step(h, p["ssm"], cfg, st)
         x = x + out
     return x, states
+
+
+def hybrid_stack(x, params, cfg, positions=None, ssm_states=None,
+                 attn_cache=None, cache_pos=None, decode=False, *,
+                 kernel="auto"):
+    """zamba2-style: G = L / P groups of ``hybrid_period`` (P) Mamba2
+    layers, each followed by shared block ``gi % num_shared_blocks`` with
+    its own KV cache slot ``gi``. ``ssm_states``: None (training), or the
+    {"conv", "ssd"} states with a leading L; ``attn_cache``: None, or
+    {"k", "v"} with a leading G; ``decode``: one token through the
+    recurrent step. The grouped states and parameters are reshapes of the
+    contiguous L leaves (views), so the stacks write the states IN PLACE.
+    Returns (x, ssm_states, attn_cache)."""
+    L, P = cfg.num_layers, cfg.hybrid_period
+    G = L // P
+
+    mamba_g = tree_map(lambda t: t.reshape((G, P) + t.shape[1:]),
+                       params["mamba"])
+    # views: a copy would drop the states the stacks write
+    ssm_g = None if ssm_states is None else tree_map(
+        lambda t: t.view((G, P) + t.shape[1:]), ssm_states)
+    shared = [p for p, _ in _layers(params["shared"])]
+    for gi, (mamba_p, st) in enumerate(_layers(mamba_g, ssm_g)):
+        if decode:
+            x, _ = ssm_decode_stack(x, mamba_p, cfg, st)
+        else:
+            x, _ = ssm_stack(x, mamba_p, cfg, states=st, kernel=kernel)
+        kv = None if attn_cache is None else tree_map(lambda t: t[gi],
+                                                      attn_cache)
+        shared_p = shared[gi % cfg.num_shared_blocks]
+        if kv is None and _remat(cfg):
+            x, _, _ = checkpoint(transformer_block, x, shared_p, cfg,
+                                 positions, kernel=kernel,
+                                 use_reentrant=False)
+        else:
+            x, _, _ = transformer_block(x, shared_p, cfg, positions,
+                                        kv_cache=kv, cache_pos=cache_pos,
+                                        kernel=kernel)
+    return x, ssm_states, attn_cache
 
 
 # ------------------------------------------------------------------ LM heads

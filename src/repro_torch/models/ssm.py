@@ -45,7 +45,8 @@ def init_ssm(generator, cfg):
         "w_B": dense_init(generator, D, g * s),
         "w_C": dense_init(generator, D, g * s),
         "w_dt": dense_init(generator, D, nh),
-        "conv_w": (K ** -0.5) * torch.randn((K, ch), generator=generator),
+        "conv_w": (K ** -0.5) * torch.randn((K, ch), generator=generator,
+                                            device=generator.device),
         "conv_b": torch.zeros(ch),
         "A_log": torch.log(torch.linspace(1.0, 16.0, nh)),  # A in [-16, -1]
         "D_skip": torch.ones(nh),

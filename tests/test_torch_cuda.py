@@ -919,3 +919,135 @@ def test_moe_smoke_model_on_the_card_matches_the_cpu(cuda_device, arch):
         out[str(dev)] = [t.cpu() for t in steps]
     for a, b in zip(out["cuda"], out["cpu"]):
         _assert_close(a, b, 1e-4, scaled=True)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the LM zoo: K4 at head dim 80 and the audio family's
+# non-causal shapes, K3 at zamba2's, the loader, the three families
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ((torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)))
+@pytest.mark.parametrize("S", (200, 512))
+def test_k4_head_dim_80_matches_plain(cuda_device, S, dtype, tol):
+    """zamba2's head dim (2560 / 32): the f32 form's five 16-column
+    strips, the bf16 form's d = 128 block on zero-filled TMA columns; on
+    the model's (B, S, heads, d) layout, causal and full."""
+    rng = np.random.default_rng(S)
+    B, H, KV, d = 2, 4, 2, 80
+    q = _normal(rng, (B, S, H, d), cuda_device, dtype).transpose(1, 2)
+    k, v = (_normal(rng, (B, S, KV, d), cuda_device, dtype).transpose(1, 2)
+            for _ in "kv")
+    before = flash_attention_cuda.launches
+    for causal in (True, False):
+        out = flash_attention(q, k, v, causal=causal, kernel="cuda")
+        assert out.dtype == dtype and out.shape == q.shape
+        _assert_close(out, attention_ref(q, k, v, causal=causal), tol)
+    assert flash_attention_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ((torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)))
+@pytest.mark.parametrize("Sq,Sk", ((512, 1500), (1500, 1500)))
+def test_k4_non_causal_ragged_keys_match_plain(cuda_device, Sq, Sk, dtype,
+                                               tol):
+    """The audio family's routes: cross-attention (512 queries over 1,500
+    encoder frames) and the encoder's self-attention (1,500 frames), a
+    length no tile divides, with k/v read from (B, Sk, KV, d) slices of a
+    stacked cross cache."""
+    rng = np.random.default_rng(Sq + Sk)
+    B, H, KV, d = 2, 4, 4, 64
+    q = _normal(rng, (B, Sq, H, d), cuda_device, dtype).transpose(1, 2)
+    cache = [_normal(rng, (2, B, Sk, KV, d), cuda_device, dtype)
+             for _ in "kv"]
+    k, v = (c[1].transpose(1, 2) for c in cache)
+    out = flash_attention(q, k, v, causal=False, kernel="cuda")
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_close(out, attention_ref(q, k, v, causal=False), tol)
+
+
+@pytest.mark.cuda
+def test_k3_zamba2_shape_bf16(cuda_device):
+    """zamba2-2.7b's Mamba2 layers: state 64 (the bf16 form's SP = 64
+    instantiation), head dim 64, chunk 256, one group, 512 tokens."""
+    rng = np.random.default_rng(54)
+    B, S, nh, ph, s, Q = 2, 512, 16, 64, 64, 256
+    X = _normal(rng, (B, S, nh, ph), cuda_device, torch.bfloat16)
+    dtv = torch.nn.functional.softplus(_normal(rng, (B, S, nh), cuda_device))
+    A = -torch.linspace(1.0, 16.0, nh, device=cuda_device)
+    Bg, Cg = (_normal(rng, (B, S, 1, s), cuda_device, torch.bfloat16, 0.5)
+              for _ in "BC")
+    before = ssd_intra_chunk_cuda.launches
+    _check_k3_bf16((X.movedim(2, 1), dtv.movedim(2, 1), A,
+                    Bg.movedim(2, 1), Cg.movedim(2, 1)), Q)
+    assert ssd_intra_chunk_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", (1, 2, 4))
+def test_sharded_loader_on_the_card(cuda_device, depth):
+    """Batches come out on the card, in order, equal to the host's, each
+    copied on the loader's side stream and waited for by the consumer's."""
+    from repro_torch.data import ShardedLoader
+    rng = np.random.default_rng(depth)
+    host = [{"tokens": rng.integers(0, 1000, (8, 64)).astype(np.int32),
+             "x": (rng.standard_normal((4, 1 << 16)).astype(np.float32),)}
+            for _ in range(9)]
+    got = list(ShardedLoader(iter(host), cuda_device, depth=depth))
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        assert g["tokens"].device.type == "cuda"
+        assert g["tokens"].dtype == torch.int32
+        np.testing.assert_array_equal(g["tokens"].cpu().numpy(), h["tokens"])
+        np.testing.assert_array_equal(g["x"][0].cpu().numpy(), h["x"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("zamba2-2.7b", "whisper-large-v3",
+                                  "internvl2-76b"))
+def test_new_families_flash_matches_xla_on_the_card(cuda_device, arch):
+    """Each new family's smoke model in f32 on the card: the flash route
+    (K4's CUDA-core form; K3 for zamba2's Mamba2 layers) against the
+    einsum route on the same parameters, prefill and two decode steps at
+    1e-4 x max(1, max|ref|), and the greedy tokens of a generate equal."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import BatchedServer, frontend_inputs
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device=cuda_device)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 32))
+    out, toks = {}, {}
+    for impl in ("flash", "xla"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        srv = BatchedServer(c, params=params, device=cuda_device)
+        model = srv.model
+        before = flash_attention_cuda.launches
+        with torch.inference_mode():
+            cache = model.init_cache(2, 35, device=cuda_device)
+            batch = {"tokens": torch.from_numpy(tokens).to(cuda_device),
+                     **frontend_inputs(cfg, 2, cuda_device)}
+            logits, cache = model.prefill(params, batch, cache)
+            steps = [logits]
+            for i in range(2):
+                logits, cache = model.decode_step(
+                    params, cache,
+                    {"tokens": torch.from_numpy(tokens[:, i:i + 1])
+                     .to(cuda_device)})
+                steps.append(logits)
+        launched = flash_attention_cuda.launches - before
+        if impl == "xla":
+            assert launched == 0, launched
+        elif cfg.family == "hybrid":    # one a shared-block invocation
+            assert launched == cfg.num_layers // cfg.hybrid_period
+        elif cfg.family == "audio":     # encoder, self and cross
+            assert launched == cfg.encoder_layers + 2 * cfg.num_layers
+        else:
+            assert launched == cfg.num_layers, launched
+        out[impl] = [t.cpu() for t in steps]
+        toks[impl] = srv.generate(tokens, 6)
+    for a, b in zip(out["flash"], out["xla"]):
+        _assert_close(a, b, 1e-4, scaled=True)
+    np.testing.assert_array_equal(toks["flash"], toks["xla"])

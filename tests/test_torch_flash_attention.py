@@ -74,6 +74,19 @@ def test_non_causal_matches_jax_kernel_and_ref():
     _close(out, jax_ref(jq, jk, jv, causal=False), 2e-5)
 
 
+@pytest.mark.parametrize("causal", (True, False))
+def test_head_dim_80_matches_jax_kernel_and_ref(causal):
+    """zamba2's head dim, 2560 / 32 = 80, which the TPU kernel takes as
+    any d: the plain version against it in interpret mode, f32 at 2e-5."""
+    (q, k, v), (jq, jk, jv) = _both(_qkv(1, 4, 2, 256, 80, 80 + causal),
+                                    "float32")
+    out = flash_attention(q, k, v, causal=causal)
+    assert out.shape == q.shape
+    _close(out, jax_flash(jq, jk, jv, causal=causal, block_q=128,
+                          block_k=128, interpret=True), 2e-5)
+    _close(out, jax_ref(jq, jk, jv, causal=causal), 2e-5)
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_ragged_causal_matches_ref(dtype, tol):
     """S = 200 is no block multiple: the JAX wrapper pads, the port's
@@ -149,8 +162,9 @@ def test_modules_import_and_run_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_model_routes_outside_k4_raise():
-    """A softcap is not part of K4's contract; cross-attention is still to
-    port."""
+    """A softcap is not part of K4's contract: the flash route raises on
+    it in self- and cross-attention alike, where the einsum route takes
+    it."""
     cfg = ModelConfig(name="t", family="dense", num_layers=1, d_model=32,
                       num_heads=2, num_kv_heads=1, d_ff=64, vocab_size=64,
                       head_dim=16, attention_impl="flash",
@@ -158,8 +172,10 @@ def test_model_routes_outside_k4_raise():
     g = torch.Generator().manual_seed(0)
     p = attention.init_attention(g, cfg)
     x = torch.randn(1, 8, 32, generator=g)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        attention.attention(x, p, cfg)
+    kv = attention.cross_kv(x, p, cfg)
+    for kw in ({}, dict(kv_override=kv), dict(mask=True)):
+        with pytest.raises(NotImplementedError, match="softcap"):
+            attention.attention(x, p, cfg, **kw)
     plain = dataclasses.replace(cfg, attention_impl="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attention(x, p, plain, kv_override=(x, x))
+    out, cache = attention.attention(x, p, plain, kv_override=kv)
+    assert out.shape == x.shape and cache is None

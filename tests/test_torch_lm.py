@@ -62,8 +62,8 @@ def test_configs_match_and_full_width_count():
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.d_ff, full.vocab_size) == \
         (28, 1024, 16, 8, 128, 3072, 151936)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        get_config("zamba2-2.7b")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("qwen3-0.6")
 
 
 def test_leaf_order_matches_jax_tree_leaves():
@@ -151,16 +151,18 @@ def test_bf16_loss_matches():
 
 
 def test_unported_model_paths_raise():
-    """The audio, hybrid and VLM families are still to port; the MoE
-    family and chunked attention build (tests/test_torch_moe.py,
-    tests/test_torch_lm_zoo.py)."""
+    """Every family of the JAX zoo builds (the audio, hybrid and VLM
+    families: tests/test_torch_encdec.py, test_torch_hybrid.py,
+    test_torch_vlm.py); a config of no LM family (the paper's LeNet-5)
+    raises, as it has no model in either package's zoo."""
     cfg = get_smoke_config(ARCH)
     for family in (dict(family="audio", is_encoder_decoder=True),
                    dict(family="hybrid", ssm_state=16, hybrid_period=2,
                         num_shared_blocks=1),
-                   dict(num_vision_tokens=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dataclasses.replace(cfg, **family))
+                   dict(family="vlm", num_vision_tokens=4)):
+        build_model(dataclasses.replace(cfg, **family))
+    with pytest.raises(ValueError, match="not an LM family"):
+        build_model(get_config("paper-lenet5"))
     build_model(dataclasses.replace(cfg, family="moe", num_experts=4))
     chunked = dataclasses.replace(cfg, attention_impl="chunked")
     loss, _ = build_model(chunked).loss(

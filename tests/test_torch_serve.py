@@ -263,19 +263,23 @@ def test_mamba2_f32_loss_and_grads_match_jax(remat):
 
 
 def test_unported_families_raise():
+    """Every family builds and serves (the audio and VLM families with the
+    JAX package's zero frontend embeddings); what no zoo family takes
+    raises: a non-LM config, an unknown id, a kernel mode."""
     cfg = get_smoke_config("qwen3-0.6b")
     for other in (dict(family="hybrid", ssm_state=16, hybrid_period=2,
                        num_shared_blocks=1),
-                  dict(family="audio", is_encoder_decoder=True),
-                  dict(num_vision_tokens=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dataclasses.replace(cfg, **other))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-2.7b")
-    srv = serve.BatchedServer(cfg, device="cpu")
-    srv.cfg = dataclasses.replace(cfg, family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.generate(_prompts(cfg), 2)
+                  dict(family="audio", is_encoder_decoder=True,
+                       encoder_layers=1, encoder_seq=8),
+                  dict(family="vlm", num_vision_tokens=4)):
+        srv = serve.BatchedServer(dataclasses.replace(cfg, **other),
+                                  device="cpu")
+        out = srv.generate(_prompts(cfg), 2)
+        assert out.shape == (B, 2) and out.dtype == np.int32
+    with pytest.raises(ValueError, match="not an LM family"):
+        build_model(get_config("paper-lenet5"))
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("zamba2")
     with pytest.raises(ValueError, match="kernel mode"):
         build_model(cfg, kernel="triton")
 
