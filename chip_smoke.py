@@ -56,11 +56,17 @@ internlm2-20b, qwen3-moe-30b-a3b and internvl2-76b (the VLM family) at
 their published widths with their depth cut to fit the card. The scan
 phase ends with the padded user axis
 (``SimConfig.n_devices``): the fleet run with ``n_devices=1`` and padded
-past n, each equal to the plain run bit for bit.
+past n, each equal to the plain run bit for bit. Last, the one-card dry
+run (``launch/dryrun.py``): the four LM cells whose arguments fit the card
+(mamba2-370m's prefill_32k, decode_32k and long_500k, zamba2-2.7b's
+long_500k) traced on meta tensors and run on the card, their argument
+bytes and decode FLOP counts held to the trace, their peaks under 75 GiB,
+K3 at the 32,768-token prefill's shape against its plain version.
 
     python3 chip_smoke.py
     python3 chip_smoke.py scan      # the scan-engine phase alone
     python3 chip_smoke.py zoo       # K4's and K3's newer shapes, the zoo phase
+    python3 chip_smoke.py dryrun    # the one-card dry run's card cells
 
 Needs a CUDA device and the CUDA toolkit (exits non-zero without a
 device) and nothing but this repository's ``src/``. Every phase raises on
@@ -77,7 +83,6 @@ import hashlib
 import inspect
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -86,6 +91,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.device import card_line  # noqa: E402
 
 # the paper's Fig. 5 setting at LeNet-5's full width (62,006 parameters,
 # 32x32x3 inputs, local batch 20, 10,000 training images), 25 clients on
@@ -188,6 +194,17 @@ K4_NEW = {"zamba2-2.7b": (8, 32, 32, 512, 512, 80, True),
 # K3 at zamba2's Mamba2 layers: batch 8 x 80 heads of one group, state 64
 # (the bf16 form's SP = 64 instantiation)
 K3_ZAMBA = (8, 512, 80, 64, 64, 256)    # batch, S, heads, ph, s, chunk
+# K3 in mamba2-370m x prefill_32k, the dry run's prefill cell: X has 2^31
+# elements, in a view of the conv output that spans 2.4e9
+K3_PREFILL_32K = (32, 32768, 32, 64, 128, 256)
+# the prefill cell's batch rows held to the plain route: their X views start
+# past 2^31 elements (a row spans 32,768 x 2,304 of the conv output). Both
+# limits are about twice the kernel-vs-plain gaps measured on the card: the
+# logits' 0.019 to 0.047 of max|logit| (the serving paths and these rows),
+# the final states' 0.042 of max|state| (these rows)
+DRYRUN_ROWS = slice(28, 32)
+DRYRUN_LOGIT_TOL = 0.1
+DRYRUN_STATE_TOL = 0.1
 # the configurations whose f32 weights exceed one card at full depth
 # (79.4, 122.1 and 282.2 GB): layers kept, at their published widths
 ZOO_CUT = {"internlm2-20b": 24, "qwen3-moe-30b-a3b": 16,
@@ -198,13 +215,6 @@ ZOO_CUT = {"internlm2-20b": 24, "qwen3-moe-30b-a3b": 16,
 ZOO_Q_BLOCK = 192
 # the padded user axis: the fleet run padded past n by this many users
 PAD_USERS = 8
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def schedule_digest(push_log) -> str:
@@ -236,8 +246,8 @@ def max_violation(a, b, rtol, atol):
     return float(diff.max()), ok
 
 
-def time_ms(fn, iters):
-    for _ in range(5):
+def time_ms(fn, iters, warmup=5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2356,37 +2366,44 @@ def profile_decode(srv, prompts, n_steps=4):
               f"{count:6d}x  {key[:90]}", flush=True)
 
 
-def profile_prefill(srv, prompts, top=10):
-    """torch.profiler over one prefill of the serving prompts (after the
-    warm-up generate): device busy time against the wall, the idle share,
-    and the kernels that take the most device time, the hand kernel's
-    share among them."""
+def profile_call(label, fn, top=10):
+    """torch.profiler over one call of ``fn`` on the card: device busy
+    time against the wall, the idle share, and the kernels that take the
+    most device time. Returns (wall s, busy s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(r[1] for r in rows) * 1e-6
+    print(f"{label} profile: wall {wall * 1e3!r} ms (profiled), device busy "
+          f"{busy * 1e3!r} ms, idle share {1.0 - busy / wall!r}, "
+          f"{sum(r[2] for r in rows)} kernels", flush=True)
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        print(f"{label} profile:   {us * 1e-3:9.3f} ms "
+              f"({us * 1e-6 / busy:6.1%})  {count:5d}x  {key[:90]}",
+              flush=True)
+    return wall, busy
+
+
+def profile_prefill(srv, prompts, top=10):
+    """``profile_call`` over one prefill of the serving prompts (after the
+    warm-up generate), the hand kernel's share among its kernels."""
     m, params = srv.model, srv.params
     with torch.inference_mode():
         cache = m.init_cache(prompts.shape[0], prompts.shape[1] + 1,
                              device="cuda")
         tokens = torch.from_numpy(prompts.astype(np.int64)).cuda()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            m.prefill(params, {"tokens": tokens}, cache)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(r[1] for r in rows) * 1e-6
-    print(f"{srv.cfg.name} prefill profile: wall {wall * 1e3!r} ms "
-          f"(profiled), device busy {busy * 1e3!r} ms, idle share "
-          f"{1.0 - busy / wall!r}, {sum(r[2] for r in rows)} kernels",
-          flush=True)
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
-        print(f"{srv.cfg.name} prefill profile:   {us * 1e-3:9.3f} ms "
-              f"({us * 1e-6 / busy:6.1%})  {count:5d}x  {key[:90]}",
-              flush=True)
+        profile_call(f"{srv.cfg.name} prefill",
+                     lambda: m.prefill(params, {"tokens": tokens}, cache),
+                     top)
 
 
 def timed_generate(srv, prompts, counter, on_start=None, warm_len=64):
@@ -2730,6 +2747,181 @@ def phase_zoo(BatchedServer, build_model, get_config, k4, k3, moe_mod):
     return out
 
 
+def k3_prefill_32k(ssd, gen):
+    """The bf16 K3 at mamba2-370m x prefill_32k's shape (``K3_PREFILL_32K``,
+    one group) on the model's (B, S, heads, .) views of one conv output,
+    as ``ssm_block`` passes them. The whole-batch launch's first and last
+    batch rows equal one-row launches bit for bit, and those are held to
+    the plain versions (``k3_bf16_check``): the plain
+    version over the whole batch would materialise its (Q x Q) decays for
+    1,024 (batch, head) rows x 128 chunks. Timed by CUDA events beside the
+    bound; ``plain ms`` is the plain version over the 32 rows, one row a
+    call. Returns (ms, plain ms, bound ms, bound by, None, max abs err)."""
+    B, S, nh, ph, s, Q = K3_PREFILL_32K
+    di = nh * ph
+    # X, B and C as the model's views of one (B, S, di + 2 s) conv output:
+    # X spans 2.4e9 elements, past int32 offsets
+    xBC = torch.empty((B, S, di + 2 * s), dtype=torch.bfloat16,
+                      device="cuda").normal_(generator=gen)
+    xBC[..., di:] *= 0.5
+    X = xBC[..., :di].reshape(B, S, nh, ph)
+    Bg, Cg = (xBC[..., di + i * s:di + (i + 1) * s].reshape(B, S, 1, s)
+              for i in (0, 1))
+    dtv = torch.nn.functional.softplus(randn((B, S, nh), gen) - 4.0)
+    A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+    args = (X.movedim(2, 1), dtv.movedim(2, 1), A, Bg.movedim(2, 1),
+            Cg.movedim(2, 1))
+
+    def row(i):
+        return tuple(t if t.dim() == 1 else t[i:i + 1] for t in args)
+
+    got = ssd.ssd_intra_chunk_cuda(*args, chunk=Q)
+    err = ratio = 0.0
+    for i in (0, B - 1):
+        e, r, one = k3_bf16_check(ssd, row(i), Q)
+        assert all(torch.equal(a[i:i + 1], b) for a, b in zip(got, one)), i
+        err, ratio = max(err, e), max(ratio, r)
+    out_bytes = sum(t.numel() * 4 for t in got)
+    del got, one
+    ms = time_ms(lambda: ssd.ssd_intra_chunk_cuda(*args, chunk=Q), 10)
+    plain = time_ms(lambda: [ssd.ssd_intra_chunk_ref(*row(i), chunk=Q)
+                             for i in range(B)], 1, warmup=1)
+    nbytes = sum(t.numel() * t.element_size() for t in (X, dtv, A, Bg, Cg)) \
+        + out_bytes
+    flops = B * nh * (S // Q) * (2 * Q * Q * s + 2 * Q * Q * ph
+                                 + 2 * Q * s * ph)
+    bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
+    print(f"K3 mamba2-370m prefill_32k (batch, S, heads, ph, s, Q) = "
+          f"{K3_PREFILL_32K}, one group, bf16: rows 0 and {B - 1} of the "
+          f"whole-batch launch equal one-row launches bit for bit, max abs "
+          f"err {err!r} against the rounded plain version, |kernel - f32| at "
+          f"{ratio:.3f} of the bf16 bound; kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms (32 one-row calls), bound {bound:.6f} ms "
+          f"({nbytes} B at 3.35 TB/s; {flops} FLOP at the bf16 tensor-core "
+          f"peak take {flops / BF16_FLOPS * 1e3:.6f} ms; {by}); no single "
+          f"PyTorch call computes it", flush=True)
+    del xBC, X, dtv, Bg, Cg, args
+    torch.cuda.empty_cache()
+    return ms, plain, bound, by, None, err
+
+
+def dryrun_prefill(dryrun, cfg, shape):
+    """The prefill cell's card arguments again (``dryrun.device_arguments``,
+    the seed ``run_cell`` draws from): a profile of one whole-batch prefill
+    step on the kernel route (``profile_call``), then that step's last
+    logits and final SSM states on batch rows ``DRYRUN_ROWS``, whose K3
+    views lie past 2^31 elements, against the plain route's over those
+    rows alone. The logits are held to ``compare_routes``' argmax rule and
+    to ``DRYRUN_LOGIT_TOL`` x max(1, max|logit|); the states (every
+    layer's) to ``DRYRUN_STATE_TOL`` x max|state|. Returns (profiled wall
+    s, device busy s, max abs logit difference, max abs state difference
+    over max|state|)."""
+    from repro_torch.kernels.fused_update.ops import tree_leaves, tree_map
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    _, (params, batch, cache) = dryrun.device_arguments(cfg, shape, 1,
+                                                        "cuda")
+    label = f"dry run {cfg.name} {shape}"
+    step, got = make_prefill_step(cfg), []
+    wall, busy = profile_call(label,
+                              lambda: got.append(step(params, batch, cache)))
+    logits, states = got.pop()
+    rows = DRYRUN_ROWS
+    auto = logits[rows, -1].float()
+    auto_st = tree_map(lambda t: t[:, rows].clone(), states["layers"])
+    del logits, states, cache
+    torch.cuda.empty_cache()
+    n = rows.stop - rows.start
+    cache = build_model(cfg).init_cache(n, dryrun.SHAPES[shape].seq_len,
+                                        device="cuda")
+    out, ref = make_prefill_step(cfg, kernel="reference")(
+        params, {k: t[rows] for k, t in batch.items()}, cache)
+    ref_logits = out[:, -1].float()
+    del params, batch
+    label += (f", rows {rows.start}-{rows.stop - 1} of the whole batch of "
+              f"{dryrun.SHAPES[shape].global_batch}")
+    diff = compare_routes(label, auto, ref_logits)
+    limit = DRYRUN_LOGIT_TOL * max(1.0, float(ref_logits.abs().max()))
+    st = max(float((a.float() - b.float()).abs().max())
+             / float(b.float().abs().max())
+             for a, b in zip(tree_leaves(auto_st), tree_leaves(ref["layers"])))
+    print(f"{label}: logit difference {diff!r} against the limit {limit!r}; "
+          f"final states (every layer) max abs difference at {st!r} of "
+          f"max|state|, limit {DRYRUN_STATE_TOL}", flush=True)
+    assert diff <= limit, (diff, limit)
+    assert st <= DRYRUN_STATE_TOL, st
+    del out, ref, cache, auto_st
+    torch.cuda.empty_cache()
+    return wall, busy, diff, st
+
+
+def phase_dryrun(dryrun, ssd):
+    """The one-card dry run (``launch/dryrun.py``) of its ``CARD_CELLS``:
+    each cell traced on meta tensors at its production shape, then run on
+    the card (a warm-up step, a timed step, a step under FlopCounterMode;
+    records to artifacts/dryrun/). Holds the card tensors' bytes equal
+    to the trace's argument bytes, the peak under ``CARD_BYTES``, the
+    decode cells' FLOP counts equal to the trace's (no hand kernel on
+    their path) and the prefill's K3 launches to one a layer a step; then
+    a profile of the prefill cell's step and its K3 route against the
+    plain route on four rows past 2^31 elements (``dryrun_prefill``) and
+    K3 at its shape (``k3_prefill_32k``).
+    The hand kernels' launch counts (``dryrun.launch_counters``) are set
+    to 0 before the cells and read after them. Returns ({cell: figures},
+    {kernel: launches}, K3's figures)."""
+    from repro_torch.configs import get_config
+    counters = dryrun.launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = {}
+    for arch, shape in dryrun.CARD_CELLS:
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape,
+                              os.path.join(ROOT, "artifacts", "dryrun"),
+                              device="cuda")
+        if rec["status"] != "ok":
+            raise RuntimeError(f"dry run {arch} {shape}: {rec['error']}\n"
+                               f"{rec['traceback']}")
+        real, card = rec["real"], rec["card"]
+        args = real["memory"]["argument_bytes"]
+        assert card["argument_bytes"] == args, (card["argument_bytes"], args)
+        assert card["peak_bytes"] < dryrun.CARD_BYTES, card["peak_bytes"]
+        assert card["fits_card"] and card["output_ok"], card
+        if real["kind"] == "decode":
+            assert card["flops"] == real["flops"], (card["flops"],
+                                                    real["flops"])
+            assert card["kernels"] == {}, card["kernels"]
+        else:
+            assert card["kernels"] == {
+                "K3 ssd_intra_chunk": get_config(arch).num_layers}, \
+                card["kernels"]
+        out[f"{arch} {shape}"] = fig = {
+            "kind": real["kind"], "argument_bytes": args,
+            "peak_bytes": card["peak_bytes"], "step_ms": card["step_ms"],
+            "flops": real["flops"], "card_flops": card["flops"],
+            "model_flops": rec["model_flops"], "kernels": card["kernels"],
+            "trace_s": real["trace_s"], "seconds": time.perf_counter() - t}
+        print(f"dry run {arch} {shape} ({real['kind']}): arguments {args} B "
+              f"({args / 2 ** 30:.3f} GiB, equal on the card), peak "
+              f"{card['peak_bytes']} B ({card['peak_bytes'] / 2 ** 30:.3f} "
+              f"GiB), step {card['step_ms']!r} ms (CUDA events, after one "
+              f"warm-up step); counted FLOPs {real['flops']} on meta, "
+              f"{card['flops']} on the card; model FLOPs "
+              f"{rec['model_flops']!r} (ratio counted / model "
+              f"{real['flops'] / rec['model_flops']:.4f}); kernels "
+              f"{card['kernels']}; trace {real['trace_s']:.1f} s, cell "
+              f"{fig['seconds']:.1f} s; {card['card']}", flush=True)
+    launches = {name: c.launches for name, c in counters.items()}
+    assert launches["K3 ssd_intra_chunk"] > 0, launches
+    prof = out["mamba2-370m prefill_32k"]
+    (prof["profile_wall_s"], prof["profile_busy_s"], prof["route_diff"],
+     prof["route_state_diff"]) = dryrun_prefill(
+        dryrun, get_config("mamba2-370m"), "prefill_32k")
+    k3 = k3_prefill_32k(ssd, torch.Generator(device="cuda").manual_seed(5))
+    return out, launches, k3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2748,7 +2940,7 @@ def main() -> int:
                                                   fused_update_flat,
                                                   fused_update_triton)
     from repro_torch.configs import get_config
-    from repro_torch.launch import train
+    from repro_torch.launch import dryrun, train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.kernels.fused_update.kernel import (
         BYTES_PER_ELEMENT, HBM_BYTES_PER_S, cohort_bytes, ticket_counter)
@@ -2894,6 +3086,11 @@ def main() -> int:
                     moe_mod)
     print(f"zoo phase: {time.perf_counter() - t:.1f} s", flush=True)
 
+    # ---- 8c. the one-card dry run: the cells that fit the card ----------
+    t = time.perf_counter()
+    dry, _, k3_dry = phase_dryrun(dryrun, ssd_scan)
+    print(f"dry-run phase: {time.perf_counter() - t:.1f} s", flush=True)
+
     # ---- 9. the kernels record ---------------------------------------------
     ms, plain_ms, b_ms = times[LENET_N, 1]
     k2_ms, k2_plain, k2_bound, _ = k2_times[QWEN_N]
@@ -2977,6 +3174,13 @@ def main() -> int:
             "library_ms": v[4], "max_abs_err": v[5]}
             for v in (k3_t["zamba2-2.7b"],)},
         "zoo_launches": {"zamba2-2.7b": zoo["zamba2-2.7b"]["k3_launches"]},
+        "dryrun_shapes": {"mamba2-370m prefill_32k": {
+            "shape": list(K3_PREFILL_32K),
+            "launches": dry["mamba2-370m prefill_32k"]["kernels"][
+                "K3 ssd_intra_chunk"],
+            "ms": k3_dry[0], "plain_ms": k3_dry[1], "bound_ms": k3_dry[2],
+            "bound_by": k3_dry[3], "library_ms": k3_dry[4],
+            "max_abs_err": k3_dry[5]}},
     }, {
         "name": "online_replay (online's in-slot replay: Alg. 2's "
                 "sequential lag coupling, one launch a slot)",
@@ -3009,7 +3213,7 @@ def main() -> int:
             for name, v in k4_zoo.items()
             for shape in ({**K4_ZOO, **K4_NEW}[name],)},
         "zoo_launches": {arch: f["k4_launches"] for arch, f in zoo.items()},
-    }], "zoo_serving": zoo}), flush=True)
+    }], "zoo_serving": zoo, "dryrun": dry}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3066,6 +3270,28 @@ def main_zoo() -> int:
     return 0
 
 
+def main_dryrun() -> int:
+    """``python3 chip_smoke.py dryrun``: K3's build and the dry-run phase
+    alone (about two minutes), for work on the dry run; prints no ``ok``
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import _cuda_build, ssd_scan
+    from repro_torch.launch import dryrun
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    phase_build(_cuda_build, ("ssd_scan",))
+    t = time.perf_counter()
+    dry, launches, k3 = phase_dryrun(dryrun, ssd_scan)
+    print(json.dumps({"dryrun": dry, "launches": launches, "k3": k3}),
+          flush=True)
+    print(f"dry-run phase: {time.perf_counter() - t:.1f} s", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit({("scan",): main_scan, ("zoo",): main_zoo}.get(
-        tuple(sys.argv[1:]), main)())
+    sys.exit({("scan",): main_scan, ("zoo",): main_zoo,
+              ("dryrun",): main_dryrun}.get(tuple(sys.argv[1:]), main)())

@@ -10,6 +10,11 @@ dense ``qwen3-0.6b``, ``qwen2.5-3b``, ``phi4-mini-3.8b`` and
 ``internvl2-76b``, and ``paper-lenet5`` (the paper's LeNet-5 workload:
 not an LM config, so ``build_model`` does not take it). An unknown id
 raises.
+
+``ARCHS`` is the JAX registry's list of module names, in its order, and
+``all_arch_ids()`` the ids that registry derives from it, letter for
+letter: zamba2's comes out as ``zamba2-2-7b`` (module name with dashes,
+not its assigned ``zamba2-2.7b``), an alias ``get_config`` accepts.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ _IDS = {"qwen3-0.6b": "qwen3_0_6b", "mamba2-370m": "mamba2_370m",
         "whisper-large-v3": "whisper_large_v3",
         "internvl2-76b": "internvl2_76b",
         "paper-lenet5": "paper_lenet5"}
+ARCHS = ["mamba2_370m", "qwen3_moe_30b_a3b", "granite_moe_1b_a400m",
+         "internlm2_20b", "qwen3_0_6b", "qwen2_5_3b", "phi4_mini_3_8b",
+         "whisper_large_v3", "zamba2_2_7b", "internvl2_76b"]
 ALIASES = {alias: mod for arch, mod in _IDS.items()
            for alias in (arch, mod, mod.replace("_", "-"))}
 
@@ -42,3 +50,8 @@ def get_config(arch: str):
 def get_smoke_config(arch: str):
     return _module(arch).SMOKE_CONFIG
 
+
+def all_arch_ids():
+    dotted = {"qwen3_0_6b": "qwen3-0.6b", "qwen2_5_3b": "qwen2.5-3b",
+              "phi4_mini_3_8b": "phi4-mini-3.8b"}
+    return [dotted.get(a, a.replace("_", "-")) for a in ARCHS]

@@ -1,5 +1,8 @@
-"""The device rule every entry point of the port shares."""
+"""The device rule every entry point of the port shares, and the card's
+name and power limit that every measurement is written beside."""
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -13,3 +16,12 @@ def resolve_device(device="cuda") -> torch.device:
             "device='cuda' was asked for but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]

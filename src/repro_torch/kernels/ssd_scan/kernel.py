@@ -9,6 +9,10 @@ the tensor-core form (wgmma fed by TMA), f32 the CUDA-core form. Inputs
 are read through their strides (the last dimension contiguous), and B and
 C once per group. TMA reads the bf16 tiles, so for bf16 the bases and the
 strides of every dimension longer than 1 must be multiples of 16 bytes.
+Extents and strides are int32 arguments; the kernel forms every offset
+in 64 bits, so a view may span more than 2^31 elements (mamba2-370m's
+32,768-token prefill: X, a view of the 2,304-wide conv output, spans
+2.4e9).
 The kernel has no backward (neither has the TPU kernel it replaces), so a
 call that would need a gradient raises.
 """
@@ -84,9 +88,12 @@ def _check(X, dtv, A, Bh, Ch, chunk):
             raise ValueError(f"ssd_intra_chunk_cuda: {name} needs a "
                              f"contiguous last dimension, got strides "
                              f"{t.stride()}")
-        if sum((n - 1) * st for n, st in zip(t.shape, t.stride())) >= _INT31:
-            raise ValueError(f"ssd_intra_chunk_cuda: {name} exceeds the "
-                             "kernel's int32 strides")
+        if any(n >= _INT31 or st >= _INT31
+               for n, st in zip(t.shape, t.stride())):
+            raise ValueError(f"ssd_intra_chunk_cuda: {name}'s extents and "
+                             "strides must fit the kernel's int32 "
+                             f"arguments, got {tuple(t.shape)}, strides "
+                             f"{t.stride()}")
         if t.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(st % 8 for n, st in
                                          zip(t.shape[:3], t.stride()[:3])

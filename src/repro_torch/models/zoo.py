@@ -36,7 +36,8 @@ prefill into ``cache["cross"]``. The hybrid family's cache is
 The MoE family's loss is ``loss + 0.01 * aux`` with ``{"loss",
 "aux_loss"}`` in its metrics, as in JAX. ``params_from_jax`` carries a
 JAX parameter tree across (the two libraries draw different numbers from
-one seed).
+one seed). ``param_specs(cfg)`` is the shape-only tree ``init`` draws:
+meta tensors, nothing allocated or drawn.
 """
 from __future__ import annotations
 
@@ -346,6 +347,26 @@ def build_model(cfg: ModelConfig, kernel: str = "auto") -> Model:
             f"family {cfg.family!r} is not an LM family of the zoo; "
             f"build_model builds {sorted(FAMILIES)}")
     return FAMILIES[cfg.family](cfg, kernel)
+
+
+class _MetaDraws(torch.Generator):
+    """A CPU generator whose draws land on the meta device: every ``init``
+    allocates its draws on ``generator.device``, and a draw into a meta
+    tensor computes nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_specs(cfg: ModelConfig):
+    """The parameter tree ``build_model(cfg).init`` returns, as meta tensors
+    of the same shapes and dtypes: nothing is drawn or allocated (``init``
+    itself draws on its generator's device before moving the tree, which
+    for internvl2-76b would be 282 GB on the host)."""
+    with torch.device("meta"):
+        return build_model(cfg, kernel="reference").init(_MetaDraws(),
+                                                         device="meta")
 
 
 def params_from_jax(tree, device="cuda"):

@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.server import AsyncParameterServer  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention, flash_attention_cuda)
@@ -32,6 +33,7 @@ from repro_torch.kernels.fused_update import (  # noqa: E402
     fused_update_flat, fused_update_flat_ref, fused_update_triton)
 from repro_torch.kernels.fused_update.kernel import (  # noqa: E402
     ticket_counter)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     bf16_bound, bf16_rounding_slack, ssd_chunked, ssd_chunked_ref,
@@ -1051,3 +1053,56 @@ def test_new_families_flash_matches_xla_on_the_card(cuda_device, arch):
     for a, b in zip(out["flash"], out["xla"]):
         _assert_close(a, b, 1e-4, scaled=True)
     np.testing.assert_array_equal(toks["flash"], toks["xla"])
+
+
+# ------------------------------------------------------ the one-card dry run
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape", dryrun.CARD_CELLS)
+def test_dryrun_card_cell(cuda_device, arch, shape):
+    """A ``CARD_CELLS`` cell through ``run_cell`` on the card: the card
+    tensors' bytes equal the meta trace's argument bytes, the peak stays
+    under ``CARD_BYTES``, the output is right in kind, a decode step
+    counts the trace's FLOPs (no hand kernel on its path) and a prefill
+    launches K3 once a layer."""
+    rec = dryrun.run_cell(arch, shape, device="cuda")
+    assert rec["status"] == "ok", rec.get("traceback")
+    real, card = rec["real"], rec["card"]
+    assert card["argument_bytes"] == real["memory"]["argument_bytes"]
+    assert card["peak_bytes"] < dryrun.CARD_BYTES and card["fits_card"]
+    assert card["output_ok"]
+    if real["kind"] == "decode":
+        assert card["flops"] == real["flops"]
+        assert card["kernels"] == {}
+    else:
+        assert card["kernels"] == {
+            "K3 ssd_intra_chunk": get_config(arch).num_layers}
+
+
+@pytest.mark.cuda
+def test_k3_prefill_32k_shape(cuda_device):
+    """K3 at mamba2-370m x prefill_32k's shape (batch 32 x 32 heads of one
+    group, S 32,768: X has 2^31 elements), bf16, on the model's views of
+    one conv output (X's view spans 2.4e9 elements, past int32 offsets):
+    the whole-batch launch's first and last rows equal one-row launches
+    bit for bit, and those hold the plain versions' bounds (the plain
+    version over the whole batch would take ~100 GiB of (Q x Q) decays)."""
+    B, S, nh, ph, s, Q = 32, 32768, 32, 64, 128, 256
+    di = nh * ph
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    xBC = torch.empty((B, S, di + 2 * s), dtype=torch.bfloat16,
+                      device=cuda_device).normal_(generator=gen)
+    xBC[..., di:] *= 0.5
+    X = xBC[..., :di].reshape(B, S, nh, ph)
+    Bg, Cg = (xBC[..., di + i * s:di + (i + 1) * s].reshape(B, S, 1, s)
+              for i in (0, 1))
+    dtv = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=gen, device=cuda_device) - 4.0)
+    A = -torch.linspace(1.0, 16.0, nh, device=cuda_device)
+    args = (X.movedim(2, 1), dtv.movedim(2, 1), A, Bg.movedim(2, 1),
+            Cg.movedim(2, 1))
+    got = ssd_intra_chunk_cuda(*args, chunk=Q)
+    for i in (0, B - 1):
+        one = _check_k3_bf16(tuple(t if t.dim() == 1 else t[i:i + 1]
+                                   for t in args), Q)
+        for a, b in zip(got, one):
+            assert torch.equal(a[i:i + 1], b), i
